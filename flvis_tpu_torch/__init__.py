@@ -3,12 +3,13 @@
 The JAX package `flvis_tpu` is the reference this package is held against:
 module for module the layout mirrors it (geometry/, ops/, frontend/,
 backend/, pipeline/), and the state records keep its field names, so a
-test can hand the same numpy state to both (see `interop`).  Modules that
-never imported JAX (`flvis_tpu.config`, `flvis_tpu.io.synthetic`,
-`flvis_tpu.utils.evaluation`) are imported from there, not copied.
+test can hand the same numpy state to both (see `interop`).
 
 Rules of the port:
-  - This package imports `torch` and never `jax`.
+  - This package imports `torch` and never `jax`, and nothing of the JAX
+    package either, not even its modules that import no JAX: what it needs
+    of them it keeps as its own copy, with a header line naming the module
+    it mirrors (`config.py`, `io/synthetic.py`).
   - Every function takes tensors on an explicit device; nothing picks a
     device by itself.  Randomness comes from an explicit `torch.Generator`
     or from draws passed in by the caller.

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from flvis_tpu.config import BackendConfig
+from ..config import BackendConfig
 
 from ..geometry import se3 as se3m, so3
 from ..geometry.camera import StereoCamera

@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from flvis_tpu.config import FrontendConfig
+from ..config import FrontendConfig
 
 from ..backend import motion_ba
 from ..backend.window_ba import KeyframePacket

@@ -1,8 +1,9 @@
 """Build the CUDA C++ sources in flvis_tpu_torch/csrc/ into one shared
 library at first use, and load it with ctypes.
 
-Route: nvcc → a shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds, not minutes), loaded with ctypes;
+Route: nvcc, one process per source started together, then one link →
+a shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, not minutes), loaded with ctypes;
 wrappers pass `data_ptr()` pointers and PyTorch's current stream.  The
 library lands in flvis_tpu_torch/_build/ (git-ignored) under a name keyed
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "flvis_schur_scratch_floats": [_I, _I],
     "flvis_schur_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P,
                          _P, _P],
+    "flvis_attitude_chain": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "flvis_fast_score_nms_blur": [_P, _P, _P, _I, _I, _F, _I, _F, _P],
+    "flvis_sweep_maps": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "flvis_hamming_matrix": [_P, _P, _P, _I, _I, _P],
 }
 
 
@@ -74,16 +79,35 @@ def load_library():
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # One nvcc per source, all started together, then one link.
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = so.with_name(f"{so.stem}.{src.stem}.{os.getpid()}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+        logs = []
+        for cmd, proc in procs + [(None, None)]:
+            if proc is None:        # every object built: link them
+                cmd = [nvcc, "-shared", NVCC_FLAGS[0], NVCC_FLAGS[1], "-o", str(tmp),
+                       *map(str, objs)]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True)
+            out, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                for p in procs:
+                    p[1].kill()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{out}\n{err}")
         info["build_s"] = time.perf_counter() - t0
-        info["ptxas"] = proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stderr)
+        info["ptxas"] = "".join(logs)
+        for obj in objs:
+            obj.unlink()
+        so.with_suffix(".log").write_text(info["ptxas"])
         os.replace(tmp, so)
     elif so.with_suffix(".log").exists():
         info["ptxas"] = so.with_suffix(".log").read_text()

@@ -1,5 +1,6 @@
-"""The port imports no JAX: an AST scan of every module of flvis_tpu_torch,
-of chip_smoke.py, and of every flvis_tpu module they import (transitively).
+"""The port imports no JAX and nothing of the JAX package: an AST scan of
+every module of flvis_tpu_torch and of chip_smoke.py, followed through the
+imports that resolve inside this repository (transitively).
 
 A sys.modules check cannot show this here: the test process imports jax
 for the parity tests, and the container may import it at interpreter
@@ -64,10 +65,13 @@ def _closure():
 
 
 def test_closure_reaches_the_shared_modules():
+    """The closure reaches no file of the JAX package; the port's own copies
+    of its JAX-free modules take their place."""
     files = {str(f.relative_to(ROOT)) for f in _closure()}
-    for shared in ("flvis_tpu/__init__.py", "flvis_tpu/config.py",
-                   "flvis_tpu/io/synthetic.py", "flvis_tpu_torch/ops/kernels/schur.py"):
-        assert shared in files, shared
+    assert not [f for f in files if f.startswith("flvis_tpu/")], sorted(files)
+    for own in ("flvis_tpu_torch/config.py", "flvis_tpu_torch/io/synthetic.py",
+                "flvis_tpu_torch/ops/kernels/schur.py", "chip_smoke.py"):
+        assert own in files, own
 
 
 @pytest.mark.parametrize("path", [str(f.relative_to(ROOT)) for f in _closure()])

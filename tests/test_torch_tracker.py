@@ -18,13 +18,15 @@ Free run: the port alone over the `vo_run` scene of tests/test_tracker.py,
 drawing from its torch.Generator, must keep TRACKING with the ATE bound of
 tests/test_tracker.py:97."""
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from flvis_tpu.config import BackendConfig, FrontendConfig
+import flvis_tpu_torch.config as tconfig
+from flvis_tpu.config import FrontendConfig
 from flvis_tpu.frontend import tracker as jtr
 from flvis_tpu.geometry import camera as jcam
 from flvis_tpu.geometry import se3 as jse3
@@ -52,6 +54,12 @@ def small_cfg(**kw):
     return FrontendConfig(**base)
 
 
+def _port(cfg):
+    """The port's FrontendConfig with the same fields as the reference's."""
+    return tconfig.FrontendConfig(**{f.name: getattr(cfg, f.name)
+                                     for f in dataclasses.fields(cfg)})
+
+
 def jax_draws(cfg, frame_id, status):
     """The JAX tracker's draws for a frame, as a port Draws record."""
     key = jax.random.fold_in(jax.random.PRNGKey(7), frame_id)
@@ -75,7 +83,7 @@ def cameras(scfg, baseline=None, **kw):
 
 
 def port_state(jstate, cfg):
-    return interop.from_numpy(interop.to_numpy(jstate), ttr.init_state(cfg, device=DEV),
+    return interop.from_numpy(interop.to_numpy(jstate), ttr.init_state(_port(cfg), device=DEV),
                               TO_T)
 
 
@@ -112,7 +120,7 @@ def test_one_frame_parity_from_jax_state(jax_run, frame):
     cfg, tc, frames = jax_run
     before, l, r, jout, jafter = frames[frame]
     draws = jax_draws(cfg, int(before.frame_id), int(before.status))
-    tafter, tout = ttr.track_frame(cfg, tc, port_state(before, cfg), torch.as_tensor(l),
+    tafter, tout = ttr.track_frame(_port(cfg), tc, port_state(before, cfg), torch.as_tensor(l),
                                    torch.as_tensor(r), draws=draws)
     assert_frame_parity(jout, tout)
     # The carried state agrees too: same live slots, ids and depth flags.
@@ -145,7 +153,7 @@ def test_pnp_rescue_parity(jax_run):
     _, jout = jtr.track_frame(cfg, jc, state, jnp.asarray(il), jnp.asarray(ir),
                               prior_T=T_bad, use_prior=True)
     tbad = tse3.SE3(torch.as_tensor(np.array(T_bad.q)), torch.as_tensor(np.array(T_bad.t)))
-    _, tout = ttr.track_frame(cfg, tc, port_state(state, cfg), torch.as_tensor(il),
+    _, tout = ttr.track_frame(_port(cfg), tc, port_state(state, cfg), torch.as_tensor(il),
                               torch.as_tensor(ir), prior_T=tbad, use_prior=True,
                               draws=jax_draws(cfg, int(state.frame_id), int(state.status)))
     assert int(jout.status) == jtr.STATUS_TRACKING and int(jout.num_inliers) >= 15
@@ -164,7 +172,7 @@ def test_depth_mode_parity():
         l, _, depth = scene.render(R, t)
         d_img = (depth * 1000.0).astype(np.float32)
         draws = jax_draws(cfg, int(state.frame_id), int(state.status))
-        _, tout = ttr.track_frame(cfg, tc, port_state(state, cfg), torch.as_tensor(l),
+        _, tout = ttr.track_frame(_port(cfg), tc, port_state(state, cfg), torch.as_tensor(l),
                                   torch.as_tensor(d_img), draws=draws)
         state, jout = jtr.track_frame(cfg, jc, state, jnp.asarray(l), jnp.asarray(d_img))
         assert_frame_parity(jout, tout)
@@ -177,12 +185,12 @@ def test_free_run_vo_scene():
     cfg = small_cfg()
     _, tc = cameras(scfg)
     poses = orbit_trajectory(N_FRAMES, step=0.03)
-    state = ttr.init_state(cfg, device=DEV)
+    state = ttr.init_state(_port(cfg), device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(0)
     errs, kfs = [], 0
     for (R, t) in poses:
         l, r, _ = scene.render(R, t)
-        state, out = ttr.track_frame(cfg, tc, state, torch.as_tensor(l), torch.as_tensor(r),
+        state, out = ttr.track_frame(_port(cfg), tc, state, torch.as_tensor(l), torch.as_tensor(r),
                                      generator=gen)
         assert int(out.status) == ttr.STATUS_TRACKING
         assert int(out.num_inliers) > 30
@@ -205,14 +213,15 @@ def test_frames_scan_and_feedback_helpers():
     i0 = torch.as_tensor(np.stack([a for a, _ in imgs]))
     i1 = torch.as_tensor(np.stack([b for _, b in imgs]))
     gen = torch.Generator(device=DEV).manual_seed(0)
-    st, outs, pkts = ttr.track_frames_scan(cfg, tc, ttr.init_state(cfg, device=DEV), i0, i1,
+    pcfg = _port(cfg)
+    st, outs, pkts = ttr.track_frames_scan(pcfg, tc, ttr.init_state(pcfg, device=DEV), i0, i1,
                                            gen, with_packets=True)
     assert outs.status.shape == (3,) and bool((outs.status == 1).all())
     assert pkts.lm_id.shape == (3, cfg.num_slots)
 
     # A null (valid=False) Correction changes nothing: every effect of
     # apply_correction is gated on corr.valid on the device.
-    null = twba.null_correction(BackendConfig(max_landmarks=64), device=DEV)
+    null = twba.null_correction(tconfig.BackendConfig(max_landmarks=64), device=DEV)
     same = ttr.apply_correction(st, null)
     for a, b in zip(jax.tree.leaves(interop.to_numpy(same)), jax.tree.leaves(interop.to_numpy(st))):
         np.testing.assert_array_equal(a, b)

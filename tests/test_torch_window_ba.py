@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from flvis_tpu.backend import window_ba as jwba
-from flvis_tpu.config import BackendConfig
+import flvis_tpu.config as jconfig
+import flvis_tpu_torch.config as tconfig
 from flvis_tpu.geometry import camera as jcam
 from flvis_tpu.geometry import se3 as jse3
 from flvis_tpu.geometry import so3 as jso3
@@ -20,7 +21,8 @@ from flvis_tpu_torch.geometry import se3 as tse3
 from flvis_tpu_torch.ops.kernels import schur
 
 torch.set_num_threads(1)
-CFG = BackendConfig(window_size=5, max_landmarks=128, min_views=3, iters1=12, iters2=8)
+KW = dict(window_size=5, max_landmarks=128, min_views=3, iters1=12, iters2=8)
+JCFG, TCFG = jconfig.BackendConfig(**KW), tconfig.BackendConfig(**KW)
 CAM_ARGS = (400.0, 400.0, 256.0, 192.0, 0.2)
 JCAM = jcam.make(*CAM_ARGS, width=512, height=384)
 TCAM = tcam.make(*CAM_ARGS, width=512, height=384, device="cpu")
@@ -60,14 +62,14 @@ def _windows(noise=0.5, pose_noise=0.03, pw_noise=0.15, seed=0, n_kf=5):
     """The same window built by both packages' add_keyframe."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform([-4, -3, 6], [4, 3, 14], size=(60, 3)).astype(np.float32)
-    js = jwba.empty(CFG)
-    ts = twba.empty(CFG, device="cpu")
+    js = jwba.empty(JCFG)
+    ts = twba.empty(TCFG, device="cpu")
     pkt_like = twba.KeyframePacket(*([None] * 9))
     for i in range(n_kf):
         p = _packet(i, pts, rng, noise, 0.0 if i == 0 else pose_noise, pw_noise)
-        js = jwba.add_keyframe(CFG, js, p)
+        js = jwba.add_keyframe(JCFG, js, p)
         tp = interop.from_numpy(interop.to_numpy(p), pkt_like, TO_T)
-        ts = twba.add_keyframe(CFG, ts, tp)
+        ts = twba.add_keyframe(TCFG, ts, tp)
     return js, ts
 
 
@@ -86,17 +88,18 @@ def test_add_keyframe_bookkeeping(n_kf):
 
 
 def test_add_keyframe_capacity_and_reset():
-    small = BackendConfig(window_size=3, max_landmarks=16)
+    jsmall = jconfig.BackendConfig(window_size=3, max_landmarks=16)
+    small = tconfig.BackendConfig(window_size=3, max_landmarks=16)
     rng = np.random.default_rng(1)
     pts = rng.uniform([-4, -3, 6], [4, 3, 14], size=(30, 3)).astype(np.float32)
     p = _packet(0, pts, rng)
-    js = jwba.add_keyframe(small, jwba.empty(small), p)
+    js = jwba.add_keyframe(jsmall, jwba.empty(jsmall), p)
     ts = twba.add_keyframe(small, twba.empty(small, device="cpu"),
                            interop.from_numpy(interop.to_numpy(p),
                                               twba.KeyframePacket(*([None] * 9)), TO_T))
     assert int(ts.lm_valid.sum()) == 16
     _assert_windows_equal(js, ts)
-    _assert_windows_equal(jwba.reset(small, js), twba.reset(small, ts))
+    _assert_windows_equal(jwba.reset(jsmall, js), twba.reset(small, ts))
 
 
 def _step_inputs(js):
@@ -177,8 +180,8 @@ def test_optimize_matches_jax(case):
         ts = twba.WindowState(**{**ts.__dict__, "obs_uv": torch.as_tensor(uv)})
     else:
         js, ts = _windows(n_kf=2, seed=4)
-    jr = jwba.optimize(CFG, JCAM, js)
-    tr = twba.optimize(CFG, TCAM, ts)
+    jr = jwba.optimize(JCFG, JCAM, js)
+    tr = twba.optimize(TCFG, TCAM, ts)
     jd, td = interop.to_numpy(jr), interop.to_numpy(tr)
     for k in ("kf_frame_id", "kf_valid", "lm_id", "lm_valid", "obs_valid"):
         np.testing.assert_array_equal(td["state"][k], jd["state"][k], err_msg=k)
