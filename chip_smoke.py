@@ -4,24 +4,29 @@
 
 Builds the port's CUDA kernels from flvis_tpu_torch/csrc/, holds each
 kernel against its plain PyTorch version at the shapes the main paths give
-it (and times kernel, plain version and, where one PyTorch call computes
-the same function, that call, with CUDA events), then drives two paths of
-the port at the EuRoC-sized bench configuration:
+it (and times each kernel — its device time from torch.profiler and its
+wrapper's time between CUDA events — its plain version and, where one
+PyTorch call computes the same function, that call), then drives three
+paths of the port at the EuRoC-sized bench configuration:
 
-  1. the stereo slice — SlamSystem.process_frames (tracker + keyframe
+  a. the stereo slice — SlamSystem.process_frames (tracker + keyframe
      window BA + correction feedback) over a rendered 64-frame sequence;
-  2. the headline composition — SlamSystem(use_imu=True, use_loop=True)
+  b. the headline composition — SlamSystem(use_imu=True, use_loop=True)
     .process_frames_vio over the bench's 256-frame out-and-back loop-event
      sequence with trajectory-consistent IMU, at the default LoopConfig
-     widths (1000 ORB features, 4096 words, 2048 keyframe slots).
+     widths (1000 ORB features, 4096 words, 2048 keyframe slots), the loop
+     node resolving one chunk late as in the reference's chunked replay;
+  c. the multi-sequence composition — MultiSeqSlam(num_seqs=8,
+     use_imu=True, use_loop=True, ba_every=2, pipelined=True) over 8 chunks
+     of 8 frames of a 64-frame out-and-back per sequence.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after; the run fails unless every frame tracked, the trajectory
-error (raw and, for the headline, loop-corrected) is in bound, the headline
-closed a loop, and each kernel of each path launched on it.  Exits
-non-zero, printing no result, if there is no CUDA device or any phase
-fails.  The second-to-last lines hold the kernel table (JSON) and the
-card's name and power limit; the last line is {"ok": true, "device": {...}}.
+error is in bound, the loop paths closed loops, and each kernel of each
+path launched on it.  Exits non-zero, printing no result, if there is no
+CUDA device or any phase fails.  The second-to-last lines hold the kernel
+table (JSON) and the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -44,6 +49,13 @@ WARM_FRAMES = 16
 LOOP_FRAMES = 256                     # bench.py:368-380, 4 chunks of 64
 CHUNK = 64
 PROFILE_FRAMES = 8
+MS_SEQS, MS_CHUNK, MS_CHUNKS = 8, 8, 8    # phase c: 8 sequences × 8 chunks of 8 frames
+# The __global__ functions of each kernel's source, for its device time.
+KERNEL_FNS = {"grad_blur": ("grad_blur_kernel",),
+              "schur_step": ("landmark_pass", "reduce_pass", "solve_pass", "backsub_pass"),
+              "imu_chain": ("attitude_chain_kernel",), "fastblur": ("fastblur_kernel",),
+              "sweep": ("sweep_kernel",), "hamming": ("hamming_kernel",),
+              "bowassign": ("bowassign_kernel",), "gather": ("gather_kernel",)}
 # Card peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s and
 # float32 operations/s outside the tensor cores.  Integer XOR/popcount work is
 # counted at the float32 rate (the data sheet lists no int32 CUDA-core rate).
@@ -71,6 +83,35 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms(fn, name: str, reps: int = 20) -> float:
+    """Median device milliseconds per call of fn()'s own kernels (those of
+    KERNEL_FNS[name]), from torch.profiler's CUDA kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # The tracer now and then drops a kernel event; a profile whose event
+    # count is not a whole number per call is taken again, up to 3 times.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in p.events() if e.device_type == DeviceType.CUDA
+                      and any(k in e.name for k in KERNEL_FNS[name])),
+                     key=lambda e: e.time_range.start)
+        if evs and len(evs) % reps == 0:
+            break
+        print(f"{name}: {len(evs)} kernel events in the profile of {reps} calls "
+              f"(attempt {attempt + 1} of 3)")
+    else:
+        fail(f"{name}: no profile of {reps} calls held a whole number of events per call")
+    k = len(evs) // reps
+    return statistics.median(sum(e.time_range.elapsed_us() for e in evs[i * k:(i + 1) * k])
+                             for i in range(reps)) / 1000.0
 
 
 def bound(nbytes: float, ops: float):
@@ -151,11 +192,15 @@ def schur_inputs(cam, st, lam: float = 1e-3):
             torch.tensor(lam, dtype=f, device=fid.device))
 
 
-def entry(name, source, replaces, err, ms, plain_ms, library_ms, nbytes, ops):
+def entry(name, source, replaces, err, dev_ms, event_ms, plain_ms, library_ms, nbytes, ops):
+    """A row of the kernel table: `ms` is the kernel's device time
+    (torch.profiler), `event_ms` its wrapper's time between CUDA events."""
     b_ms, b_by = bound(nbytes, ops)
+    print(f"  {name}: device {dev_ms:.4f} ms, CUDA events {event_ms:.4f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by})")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "launches": 0, "max_abs_err": err, "ms": dev_ms, "event_ms": event_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
 def check_grad_blur(device):
@@ -173,7 +218,7 @@ def check_grad_blur(device):
     ky = np.zeros((5, 5), np.float32)
     ky[1:4, 1:4] = np.outer(imops._DIFF, imops._SCHARR_SMOOTH)
     wts = torch.as_tensor(np.stack([kx, ky, k5])[:, None], dtype=torch.float32, device=device)
-    err_max, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+    err_max, dev, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
     for (h, w) in [(480, 752), (240, 376), (120, 188)]:
         x = torch.as_tensor(rng.uniform(0, 255, (3, h, w)), dtype=torch.float32,
                             device=device)
@@ -187,6 +232,7 @@ def check_grad_blur(device):
         k_ms = cuda_ms(lambda: gradpyr.grad_blur_kernel(x))
         p_ms = cuda_ms(lambda: gradpyr.grad_blur_plain(x))
         l_ms = cuda_ms(lambda: F.conv2d(xp, wts))
+        dev += device_ms(lambda: gradpyr.grad_blur_kernel(x), "grad_blur")
         print(f"grad_blur (3,{h},{w}): max_abs_err {err:.3e} (tol {GRAD_TOL}), "
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, conv2d {l_ms:.4f} ms "
               f"(its error {lib_err:.1e})")
@@ -198,7 +244,7 @@ def check_grad_blur(device):
         ops += 68.0 * x.numel()               # gx 8, gy 11, 5x5 blur 49 flops
     print(f"grad_blur per frame (3 levels): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return entry("grad_blur", "flvis_tpu_torch/csrc/gradpyr.cu",
-                 "flvis_tpu/ops/pallas/gradpyr.py:82", err_max, ms, plain_ms, lib_ms,
+                 "flvis_tpu/ops/pallas/gradpyr.py:82", err_max, dev, ms, plain_ms, lib_ms,
                  nbytes, ops)
 
 
@@ -239,7 +285,9 @@ def check_schur(cfg, cam, device):
     per_lm = wm.sum(0)
     ops = 380.0 * n_obs + 324.0 * float((per_lm * per_lm).sum()) + (6 * W) ** 3 * 2 / 3
     return entry("schur_step", "flvis_tpu_torch/csrc/schur.cu",
-                 "flvis_tpu/ops/pallas/schur.py:305", max(errs.values()), k_ms, p_ms, None,
+                 "flvis_tpu/ops/pallas/schur.py:305", max(errs.values()),
+                 device_ms(lambda: schur.schur_step_kernel(*args, delta), "schur_step"), k_ms,
+                 p_ms, None,
                  nbytes, ops)
 
 
@@ -269,8 +317,9 @@ def check_imu_chain(device):
         fail(f"attitude_chain kernel disagrees with its plain version: {err}")
     nbytes = 4.0 * (4 + P * (4 + 3 + 1) + P * 4)
     return entry("imu_chain", "flvis_tpu_torch/csrc/imu_chain.cu",
-                 "flvis_tpu/ops/pallas/imu_chain.py:104", err, k_ms, p_ms, None, nbytes,
-                 90.0 * P)
+                 "flvis_tpu/ops/pallas/imu_chain.py:104", err,
+                 device_ms(lambda: imu_chain.attitude_chain_kernel(q0, G, a, c), "imu_chain"),
+                 k_ms, p_ms, None, nbytes, 90.0 * P)
 
 
 def check_fastblur(img):
@@ -291,7 +340,9 @@ def check_fastblur(img):
     # One image in, two maps out; ~150 flops per pixel (16 ring differences,
     # the arc tests, 3x3 max, the 14 blur taps).
     return entry("fastblur", "flvis_tpu_torch/csrc/fastblur.cu",
-                 "flvis_tpu/ops/pallas/fastblur.py:138", err, k_ms, p_ms, None,
+                 "flvis_tpu/ops/pallas/fastblur.py:138", err,
+                 device_ms(lambda: fastblur.fast_score_nms_blur_kernel(img), "fastblur"), k_ms,
+                 p_ms, None,
                  12.0 * img.numel(), 150.0 * img.numel())
 
 
@@ -319,7 +370,8 @@ def check_sweep(img_l, img_r):
     # disparity a difference, an abs and 8 box adds, plus the 64-way reductions.
     n = L.numel()
     return entry("sweep", "flvis_tpu_torch/csrc/sweep.cu",
-                 "flvis_tpu/ops/pallas/sweep.py:111", err, k_ms, p_ms, None,
+                 "flvis_tpu/ops/pallas/sweep.py:111", err,
+                 device_ms(lambda: sweep.sweep_maps_kernel(L, R), "sweep"), k_ms, p_ms, None,
                  17.0 * n, (64 * 10 + 64 * 4) * float(n))
 
 
@@ -343,17 +395,116 @@ def check_hamming(desc_a, desc_b):
     if err != 0:
         fail(f"hamming_matrix kernel disagrees with its plain version: {err}")
     return entry("hamming", "flvis_tpu_torch/csrc/hamming.cu",
-                 "flvis_tpu/ops/pallas/hamming.py:56", err, k_ms, p_ms, l_ms,
+                 "flvis_tpu/ops/pallas/hamming.py:56", err,
+                 device_ms(lambda: hamming.hamming_matrix_kernel(desc_a, desc_b), "hamming"),
+                 k_ms, p_ms, l_ms,
                  32.0 * (na + nb) + 4.0 * na * nb, 24.0 * na * nb)
 
 
+def check_bowassign(descs, valids, cfg):
+    """Term frequencies of B keyframes' descriptors against a vocabulary
+    trained on them (bow.train at the LoopConfig width)."""
+    from flvis_tpu_torch.loop import bow
+    from flvis_tpu_torch.ops import orb
+    from flvis_tpu_torch.ops.kernels import bowassign
+
+    desc, valid = torch.stack(descs).contiguous(), torch.stack(valids).contiguous()
+    B, N = valid.shape
+    vocab = bow.train(desc[valid], torch.ones(int(valid.sum()), dtype=torch.bool,
+                                              device=desc.device),
+                      num_words=cfg.loop.vocab_words, iters=6)
+    words = vocab.words_packed
+    V = words.shape[0]
+    got = bowassign.bow_tf_kernel(desc, valid, words)
+    ref = bowassign.bow_tf_plain(desc, valid, words, vocab.words_pm1)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    # The ±1 product + argmax over all B·N descriptors at once, unpacked
+    # outside the timing: the library yardstick (histogram not included).
+    d_pm1 = orb.unpack_pm1(desc.reshape(-1, 8))
+    lib = torch.argmax(d_pm1 @ vocab.words_pm1.T, dim=1)
+    lib_tf = torch.zeros((B, V), dtype=torch.int32, device=desc.device).index_put_(
+        (torch.arange(B * N, device=desc.device) // N, lib), valid.reshape(-1).to(torch.int32),
+        accumulate=True)
+    lib_err = int((lib_tf - ref).abs().max())
+    k_ms = cuda_ms(lambda: bowassign.bow_tf_kernel(desc, valid, words))
+    p_ms = cuda_ms(lambda: bowassign.bow_tf_plain(desc, valid, words, vocab.words_pm1))
+    l_ms = cuda_ms(lambda: torch.argmax(d_pm1 @ vocab.words_pm1.T, dim=1))
+    print(f"bow_tf (B={B}, N={N}, V={V}, {int(valid.sum())} valid): max_abs_err {err} (exact), "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, ±1 matmul + argmax {l_ms:.4f} ms "
+          f"(its tf error {lib_err})")
+    if err != 0:
+        fail(f"bow_tf kernel disagrees with its plain version: {err}")
+    # Operations: an XOR and a popcount per word pair and descriptor, plus the
+    # running-minimum compare; bytes: descriptors, validity, words in, tf out.
+    ops = float(B * N) * V * (8 * 2 + 1)
+    nbytes = 33.0 * B * N + 32.0 * V + 4.0 * B * V
+    return entry("bowassign", "flvis_tpu_torch/csrc/bowassign.cu",
+                 "flvis_tpu/ops/pallas/bowassign.py:84", err,
+                 device_ms(lambda: bowassign.bow_tf_kernel(desc, valid, words), "bowassign"),
+                 k_ms, p_ms, l_ms, nbytes, ops)
+
+
+def check_gather(img, cfg, device):
+    """The block gathers of one LK level-0 step (256 template blocks of the
+    (img, gx, gy) stack, 256 search windows) and one ORB patch gather
+    (1000 keypoints), at their corner clamps."""
+    from flvis_tpu_torch.ops.kernels import gather
+
+    rng = np.random.default_rng(3)
+    H, W = img.shape
+    fcfg = cfg.frontend
+    r, m = fcfg.lk_radius, 8                        # LKParams.search_margin
+    wd = 2 * r + 1 + 2 * m + 2
+    stack = torch.stack([img, img * 0.5, img * 0.25]).contiguous()
+    cases = [("LK template blocks", stack, 2 * r + 2, r + 2, fcfg.num_slots),
+             ("LK search windows", img, wd, wd, fcfg.num_slots),
+             ("ORB patches", img, 27, 14, cfg.loop.num_orb_features)]
+    err, dev, k_ms, p_ms, l_ms, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+    for label, x, size, pad, n in cases:
+        cx = torch.as_tensor(rng.integers(0, W + 2 * pad - size + 3, n), device=device)
+        cy = torch.as_tensor(rng.integers(0, H + 2 * pad - size + 3, n), device=device)
+        got = gather.gather_windows_kernel(x, cx, cy, size, pad)
+        ref = gather.gather_windows_plain(x, cx, cy, size, pad)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        # The library yardstick: advanced indexing into the padded image,
+        # padding and indices made outside the timing.
+        ar = torch.arange(size, device=device)
+        ccx = torch.clamp(cx, 0, W + 2 * pad - size)
+        ccy = torch.clamp(cy, 0, H + 2 * pad - size)
+        rows, cols = (ccy[:, None] + ar)[:, :, None], (ccx[:, None] + ar)[:, None, :]
+        x3 = x if x.dim() == 3 else x[None]
+        padded = torch.nn.functional.pad(x3[None], (pad,) * 4, mode="replicate")[0]
+
+        def lib():
+            return padded[:, rows, cols]
+
+        lib_err = float((lib().permute(1, 0, 2, 3).reshape(ref.shape) - ref).abs().max())
+        km = cuda_ms(lambda: gather.gather_windows_kernel(x, cx, cy, size, pad))
+        pm = cuda_ms(lambda: gather.gather_windows_plain(x, cx, cy, size, pad))
+        lm = cuda_ms(lib)
+        dm = device_ms(lambda: gather.gather_windows_kernel(x, cx, cy, size, pad), "gather")
+        print(f"gather_windows {label} {tuple(x.shape)} s={size} pad={pad} N={n}: "
+              f"max_abs_err {e} (exact), device {dm:.4f} ms, kernel {km:.4f} ms, plain "
+              f"{pm:.4f} ms, indexing {lm:.4f} ms (its error {lib_err})")
+        if e != 0:
+            fail(f"gather_windows kernel disagrees with its plain version ({label}): {e}")
+        err, dev, k_ms, p_ms, l_ms = max(err, e), dev + dm, k_ms + km, p_ms + pm, l_ms + lm
+        nbytes += 2.0 * got.numel() * 4 + 4.0 * x.numel()
+    return entry("gather", "flvis_tpu_torch/csrc/gather.cu",
+                 "flvis_tpu/ops/pallas/gather.py:89", err, dev, k_ms, p_ms, l_ms, nbytes, 0.0)
+
+
 def kernels():
-    from flvis_tpu_torch.ops.kernels import fastblur, gradpyr, hamming, imu_chain, schur, sweep
+    from flvis_tpu_torch.ops.kernels import (bowassign, fastblur, gather, gradpyr, hamming,
+                                             imu_chain, schur, sweep)
 
     return {"grad_blur": gradpyr.grad_blur_kernel, "schur_step": schur.schur_step_kernel,
             "imu_chain": imu_chain.attitude_chain_kernel,
             "fastblur": fastblur.fast_score_nms_blur_kernel,
-            "sweep": sweep.sweep_maps_kernel, "hamming": hamming.hamming_matrix_kernel}
+            "sweep": sweep.sweep_maps_kernel, "hamming": hamming.hamming_matrix_kernel,
+            "bowassign": bowassign.bow_tf_kernel, "gather": gather.gather_windows_kernel}
 
 
 def reset_counts():
@@ -473,18 +624,24 @@ def loop_sequence(scfg):
             frame_t, accs, gyros, imuts, path)
 
 
-def run_headline(cfg, scfg, cam, device):
-    """SlamSystem(use_imu=True, use_loop=True).process_frames_vio over the
-    loop-event sequence; returns the launch counts of the run."""
-    from flvis_tpu_torch.geometry import se3
-    from flvis_tpu_torch.pipeline import runner
-    from flvis_tpu_torch.pipeline.runner import SlamSystem
+NESTED = ("verification",)              # timed inside "loop gate decisions + verify" too
 
-    poses, imgs0, imgs1, frame_t, accs, gyros, imuts, path = loop_sequence(scfg)
-    slam = SlamSystem(cfg, cam, device=device, seed=0, T_i_c=se3.identity(device=device),
-                      use_imu=True, use_loop=True)
-    lc = slam.loop_closer
-    timer = StageTimer()
+
+def wrap_loop_node(timer, lc):
+    """Time the chunked loop node's stages of one LoopCloser."""
+    timer.wrap(lc, "add_keyframes_batch", "loop ingest")
+    timer.wrap(lc, "gate_candidates", "loop gate")
+    timer.wrap(lc, "dispatch_verify", "loop gate decisions + verify")
+    timer.wrap(lc, "_verify_device", "verification")
+    timer.wrap(lc, "resolve_verify", "loop accept")
+    timer.wrap(lc, "optimize_graph", "pgo")
+
+
+def wrap_frame_stages(timer):
+    """Time the frame step's stages (module functions, wrapped where every
+    caller finds them)."""
+    from flvis_tpu_torch.pipeline import runner
+
     for mod, name in ((runner.vimotion, "imu_feed_batch"), (runner.vimotion, "get_frame_state"),
                       (runner.tracker, "apply_correction"), (runner.tracker, "track_frame"),
                       (runner.vimotion, "rp_compensate_pose"), (runner.tracker, "rebase_pose"),
@@ -492,10 +649,22 @@ def run_headline(cfg, scfg, cam, device):
                       (runner.tracker, "make_keyframe_packet"), (runner.window_ba, "add_keyframe"),
                       (runner.window_ba, "optimize")):
         timer.wrap(mod, name, f"{mod.__name__.rsplit('.', 1)[1]}.{name}")
-    timer.wrap(lc, "add_keyframe", "loop ingest")
-    timer.wrap(lc, "detect_loop", "detect_loop (incl. verification)")
-    timer.wrap(lc, "_verify_device", "verification")
-    timer.wrap(lc, "optimize_graph", "pgo")
+
+
+def run_headline(cfg, scfg, cam, device):
+    """SlamSystem(use_imu=True, use_loop=True).process_frames_vio over the
+    loop-event sequence, the loop node resolving one chunk late, then
+    flush_loop; returns the launch counts of the run."""
+    from flvis_tpu_torch.geometry import se3
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    poses, imgs0, imgs1, frame_t, accs, gyros, imuts, path = loop_sequence(scfg)
+    slam = SlamSystem(cfg, cam, device=device, seed=0, T_i_c=se3.identity(device=device),
+                      use_imu=True, use_loop=True)
+    lc = slam.loop_closer
+    timer = StageTimer()
+    wrap_frame_stages(timer)
+    wrap_loop_node(timer, lc)
     reset_counts()
     t0 = time.perf_counter()
     outs, plain_s = [], 0.0
@@ -531,6 +700,10 @@ def run_headline(cfg, scfg, cam, device):
         print("headline profile, top host ops (self CPU ms, calls): "
               + ", ".join(f"{e.key} {e.self_cpu_time_total / 1000.0:.1f} x{e.count}"
                           for e in host))
+    tc = time.perf_counter()
+    slam.flush_loop()                   # the last chunks' gate and verification
+    torch.cuda.synchronize()
+    plain_s += time.perf_counter() - tc
     wall_s = time.perf_counter() - t0
     launches = read_counts()
     timer.restore()
@@ -561,8 +734,7 @@ def run_headline(cfg, scfg, cam, device):
     print(f"headline ATE: odometry {ate_raw:.5f} m, loop-corrected {ate_cor:.5f} m "
           f"(bound {bound_m:.5f} over a {path:.2f} m path); T_map_odom t "
           f"{lc.T_map_odom.t.cpu().numpy().round(5).tolist()}")
-    nested = ("verification",)          # timed inside detect_loop as well
-    staged = sum(v for k, v in timer.ms.items() if k not in nested)
+    staged = sum(v for k, v in timer.ms.items() if k not in NESTED)
     print(f"headline: {n_plain / plain_s:.2f} frames/s over the {n_plain} unprofiled frames "
           f"({plain_s:.1f} s; {wall_s:.1f} s for the whole phase incl. the profiled window)")
     print("headline stages over the unprofiled frames, synced host ms in all (per call x "
@@ -586,6 +758,137 @@ def run_headline(cfg, scfg, cam, device):
     if launches["hamming"] < max(n_verify, 1):
         fail(f"hamming launched {launches['hamming']} times < {n_verify} verifications")
     return launches, busy
+
+
+def out_and_back(n: int, far: float):
+    """x positions of an out-and-back along x (0 → far → 0.01), as the
+    bench's loop-event sequence (bench.py:368-372), and the path length."""
+    half = n // 2
+    xs = np.concatenate([np.linspace(0.0, far, half), np.linspace(far, 0.01, n - half)])
+    return xs, float(np.sum(np.abs(np.diff(xs))))
+
+
+def closure_errors(lc, C_gt):
+    """Per accepted closure (i, j, inliers): the translation error of its
+    measured T_ij and of the odometry's relative pose between the same two
+    keyframes, each against the ground truth (the scene's camera never
+    rotates, so the true T_ij is (I, C_j - C_i))."""
+    from flvis_tpu_torch.geometry import so3
+
+    out = []
+    for c in lc.closures:
+        fi, fj = int(lc.kf_frame_id[c.kf_i]), int(lc.kf_frame_id[c.kf_j])
+        gt = C_gt[fj] - C_gt[fi]
+        R_i = so3.to_matrix(lc.kf_q_odom[c.kf_i]).cpu().numpy()
+        odo = R_i.T @ (lc.kf_t_odom[c.kf_j] - lc.kf_t_odom[c.kf_i]).cpu().numpy()
+        out.append((c.kf_i, c.kf_j, float(np.linalg.norm(c.T_ij.t.cpu().numpy() - gt)),
+                    float(np.linalg.norm(odo - gt))))
+    return out
+
+
+def run_multiseq(cfg, scfg, cam, device):
+    """MultiSeqSlam(num_seqs=8, use_imu=True, use_loop=True, ba_every=2,
+    pipelined=True) over 8 chunks of 8 frames: each sequence a 64-frame
+    out-and-back (0 → 0.6 m → back, plane at 8 m) with its IMU; sequences
+    2..7 rolled horizontally by 7·s px (bench.py:411-418), sequences 0 and 1
+    the same frames (every sequence draws from the same seed).  Returns the
+    launch counts of the run."""
+    import dataclasses
+
+    from flvis_tpu_torch.io.synthetic import PlanarScene, imu_from_trajectory
+    from flvis_tpu_torch.parallel.multiseq_loop import MultiSeqSlam
+    from flvis_tpu_torch.pipeline.runner import pack_imu_frames
+
+    S, T, n = MS_SEQS, MS_CHUNK, MS_CHUNK * MS_CHUNKS
+    xs, path = out_and_back(n, 0.6)
+    poses = [(np.eye(3), -np.asarray([x, 0.0, 0.0])) for x in xs]
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=0)
+    frames = [scene.render(R, t) for (R, t) in poses]
+    shift = [0, 0] + [7 * s for s in range(2, S)]
+    imgs0 = np.stack([np.roll(np.stack([u8(f[0]) for f in frames]), shift[s], axis=2)
+                      for s in range(S)])
+    imgs1 = np.stack([np.roll(np.stack([u8(f[1]) for f in frames]), shift[s], axis=2)
+                      for s in range(S)])
+    t_imu, gyro, acc, frame_t = imu_from_trajectory(poses, fps=20.0)
+    accs, gyros, imuts, prev = [], [], [], -np.inf
+    for ft in frame_t:
+        m = (t_imu > prev) & (t_imu <= ft)
+        accs.append(acc[m]); gyros.append(gyro[m]); imuts.append(t_imu[m])
+        prev = ft
+
+    def bc(a):
+        return np.broadcast_to(np.asarray(a), (S,) + np.shape(a))
+
+    imu = [tuple(bc(a) for a in pack_imu_frames(accs[c:c + T], gyros[c:c + T],
+                                                imuts[c:c + T], 16)) for c in range(0, n, T)]
+    ts = bc(np.asarray(frame_t, np.float32))
+    # 64 frames hold ~20 keyframes: the loop gate starts at keyframe 10 and
+    # searches 8 behind (tests/test_multiseq_loop.py:44-48), not 50/50.
+    mcfg = cfg.replace(loop=dataclasses.replace(cfg.loop, kf_start=10, kf_dist=8))
+    ms = MultiSeqSlam(mcfg, cam, num_seqs=S, use_imu=True, use_loop=True, ba_every=2,
+                      pipelined=True, device=device)
+    timer = StageTimer()
+    wrap_frame_stages(timer)
+    for lc in ms.loopers:
+        wrap_loop_node(timer, lc)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rets = []
+    for k, c in enumerate(range(0, n, T)):
+        rets.append(ms.process_chunk_vio(imgs0[:, c:c + T], imgs1[:, c:c + T], ts[:, c:c + T],
+                                         *imu[k]))
+    rets.append(ms.flush())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    timer.restore()
+
+    outs = [r for r in rets if r is not None]
+    status = np.concatenate([o[:, :, 2] for o in outs], axis=1).astype(np.int32)
+    C_gt = np.asarray([-R.T @ t for (R, t) in poses])
+    bound_m = 0.02 * path + 0.01
+    ates = [ate(ms.trajectory_cam_centers(s), C_gt) for s in range(S)]
+    ates_cor = [ate(ms.trajectory_cam_centers(s, loop_corrected=True), C_gt) for s in range(S)]
+    pairs = [[(c.kf_i, c.kf_j) for c in lc.closures] for lc in ms.loopers]
+    staged = sum(v for k, v in timer.ms.items() if k not in NESTED)
+    print(f"multi-sequence: {S} sequences x {n} frames in {len(outs)} chunks of {T}, "
+          f"{S * n / wall:.2f} sequence-frames/s ({wall:.1f} s), keyframes "
+          f"{[lc.count for lc in ms.loopers]}, closures {[len(p) for p in pairs]}")
+    print(f"multi-sequence ATE per sequence (bound {bound_m:.5f} over a {path:.2f} m path): "
+          f"odometry {[round(a, 5) for a in ates]}, loop-corrected "
+          f"{[round(a, 5) for a in ates_cor]}; sequence 0 closures {pairs[0][:6]}...")
+    print("multi-sequence stages, synced host ms in all (per call x calls): "
+          + ", ".join(f"{k} {timer.ms[k]:.0f} ({timer.ms[k] / timer.calls[k]:.2f} "
+                      f"x{timer.calls[k]})" for k in timer.ms)
+          + f"; outside these stages {1000.0 * wall - staged:.0f}")
+    print(f"multi-sequence launches: {launches}")
+    for s, lc in enumerate(ms.loopers):
+        errs = closure_errors(lc, C_gt)
+        if not errs:
+            continue                    # fails below: every sequence must close
+        worst = max(errs, key=lambda e: e[2])
+        print(f"multi-sequence closures of sequence {s}: |T_map_odom.t| "
+              f"{float(torch.linalg.vector_norm(lc.T_map_odom.t)):.5f} m; translation error "
+              f"against the ground truth, loop edges mean "
+              f"{np.mean([e[2] for e in errs]):.5f} / max {worst[2]:.5f} m (pair "
+              f"{worst[:2]}), odometry between the same keyframes mean "
+              f"{np.mean([e[3] for e in errs]):.5f} / max {max(e[3] for e in errs):.5f} m; "
+              f"pairs {[e[:2] for e in errs]}")
+    if status.shape != (S, n) or not np.all(status[:, 1:] == 1):
+        fail(f"multi-sequence frames not TRACKING: {np.argwhere(status[:, 1:] != 1).tolist()}")
+    if not all(a < bound_m and b < bound_m for a, b in zip(ates, ates_cor)):
+        fail(f"multi-sequence ATE {ates} / loop-corrected {ates_cor} over bound {bound_m}")
+    if not all(pairs):
+        fail(f"a sequence accepted no loop closure: {[len(p) for p in pairs]}")
+    same = all(np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+               for a, b in zip(ms.trajectories[0], ms.trajectories[1]))
+    if not (same and pairs[0] == pairs[1]):
+        fail("sequences 0 and 1 (same frames, same draws) differ")
+    for name in ("bowassign", "gather"):
+        if launches[name] < 1:
+            fail(f"{name} never launched on the multi-sequence path")
+    return launches
 
 
 def main() -> int:
@@ -622,21 +925,37 @@ def main() -> int:
     img_r = torch.as_tensor(u8(img_r), device=device).float().contiguous()
     _, desc_l, _, _ = orb.detect_and_compute(img_l, num_features=cfg.loop.num_orb_features)
     _, desc_r, _, _ = orb.detect_and_compute(img_r, num_features=cfg.loop.num_orb_features)
+    # Eight keyframes' descriptors along an out-and-back: the BoW transform's batch.
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=0)
+    kf_desc, kf_valid = [], []
+    for x in out_and_back(16, 0.6)[0][::2]:
+        img = torch.as_tensor(u8(scene.render(np.eye(3), -np.asarray([x, 0.0, 0.0]))[0]),
+                              device=device).float().contiguous()
+        _, d, v, _ = orb.detect_and_compute(img, num_features=cfg.loop.num_orb_features)
+        kf_desc.append(d)
+        kf_valid.append(v)
     table = [check_grad_blur(device), check_schur(cfg, cam, device), check_imu_chain(device),
              check_fastblur(img_l), check_sweep(img_l, img_r),
-             check_hamming(desc_l.contiguous(), desc_r.contiguous())]
+             check_hamming(desc_l.contiguous(), desc_r.contiguous()),
+             check_bowassign(kf_desc, kf_valid, cfg), check_gather(img_l, cfg, device)]
     print(f"phase kernel checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     slice_launches = run_slice(cfg, scfg, cam, device)
-    print(f"phase stereo slice: {time.perf_counter() - t0:.1f} s")
+    print(f"phase a, stereo slice: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     head_launches, _ = run_headline(cfg, scfg, cam, device)
-    print(f"phase headline: {time.perf_counter() - t0:.1f} s")
+    print(f"phase b, headline: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ms_launches = run_multiseq(cfg, scfg, cam, device)
+    print(f"phase c, multi-sequence: {time.perf_counter() - t0:.1f} s")
 
+    # Launches on the path each kernel belongs to: the slice for rows 1-2,
+    # the headline for 3-6, the multi-sequence composition for 7-8.
     for e in table:
-        path_counts = slice_launches if e["name"] in ("grad_blur", "schur_step") \
-            else head_launches
+        path_counts = {"grad_blur": slice_launches, "schur_step": slice_launches,
+                       "bowassign": ms_launches, "gather": ms_launches}.get(e["name"],
+                                                                            head_launches)
         e["launches"] = path_counts[e["name"]]
     print(json.dumps({"kernels": table}))
     print(smi)

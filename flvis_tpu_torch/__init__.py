@@ -2,7 +2,7 @@
 
 The JAX package `flvis_tpu` is the reference this package is held against:
 module for module the layout mirrors it (geometry/, ops/, frontend/,
-backend/, pipeline/), and the state records keep its field names, so a
+backend/, vio/, loop/, pipeline/, parallel/), and the state records keep its field names, so a
 test can hand the same numpy state to both (see `interop`).
 
 Rules of the port:

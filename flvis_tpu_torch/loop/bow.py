@@ -10,9 +10,12 @@ batched reduction.
 Random draws: `train`'s initial centroids (jax.random.choice in the
 reference, bow.py:48-50) are the input `init_idx`; by default they come
 from a torch.Generator seeded with `seed`, and the parity tests hand in
-the reference's draw.  `transform` stays a matmul + argmax + index_add_,
-outside any hand-written kernel (the reference computes it outside Pallas
-too: its bowassign kernel is not routed).
+the reference's draw.  `transform` (one keyframe) and `transform_rows`
+(B keyframes, the reference's `_bow_rows` scan) go through the bowassign
+kernel (ops/kernels/bowassign.py) for the word assignment and term
+frequencies — the reference's TPU kernel bow_tf_pallas, which it keeps
+unrouted; on a CPU tensor its plain version, the matmul + argmax +
+index_add_ — and apply idf and the L1 normalisation here.
 """
 
 from __future__ import annotations
@@ -22,13 +25,20 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.orb import unpack_pm1
+from ..ops.kernels.bowassign import bow_tf
+from ..ops.orb import pack_pm1, unpack_pm1
 
 
 @dataclasses.dataclass(frozen=True)
 class Vocabulary:
     words_pm1: torch.Tensor    # (V, 256) ±1 float — centroid bits
     idf: torch.Tensor          # (V,) inverse document frequency weights
+    # (V, 8) int32: the words packed in ops/orb.unpack_pm1's bit order, for
+    # the bowassign kernel; computed from words_pm1.
+    words_packed: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "words_packed", pack_pm1(self.words_pm1).contiguous())
 
 
 def _assign(d, words_pm1):
@@ -75,16 +85,18 @@ def load(path: str, *, device) -> Vocabulary:
                       torch.as_tensor(data["idf"], device=device))
 
 
-def transform(vocab: Vocabulary, descriptors_packed, valid):
-    """Descriptors → L1-normalised tf-idf BoW vector (V,)."""
-    V = vocab.words_pm1.shape[0]
-    sim = unpack_pm1(descriptors_packed) @ vocab.words_pm1.T
-    sim = torch.where(valid[:, None], sim, -torch.inf)
-    assign = torch.argmax(sim, dim=1)
-    tf = torch.zeros(V, device=sim.device).index_add_(
-        0, torch.where(valid, assign, V - 1), valid.to(torch.float32))
+def transform_rows(vocab: Vocabulary, descriptors_packed, valid):
+    """B keyframes' descriptors (B, N, 8) with (B, N) valid → their
+    L1-normalised tf-idf BoW rows (B, V)."""
+    tf = bow_tf(descriptors_packed.contiguous(), valid.contiguous(), vocab.words_packed,
+                vocab.words_pm1).to(torch.float32)
     v = tf * vocab.idf
-    return v / torch.clamp(torch.sum(torch.abs(v)), min=1e-9)
+    return v / torch.clamp(torch.sum(torch.abs(v), dim=1, keepdim=True), min=1e-9)
+
+
+def transform(vocab: Vocabulary, descriptors_packed, valid):
+    """Descriptors (N, 8) → L1-normalised tf-idf BoW vector (V,)."""
+    return transform_rows(vocab, descriptors_packed[None], valid[None])[0]
 
 
 def score(a, b):

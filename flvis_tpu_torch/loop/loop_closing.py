@@ -1,22 +1,38 @@
 """Loop closing: place recognition, geometric verification, pose-graph
-optimisation and the map→odom drift (port of the stepwise node of
-flvis_tpu/loop/loop_closing.py).
+optimisation and the map→odom drift (port of flvis_tpu/loop/loop_closing.py).
 
 Per keyframe: ORB detect + compute (fastblur kernel) and keypoint depth
 from the half-res plane sweep (sweep kernel) are written into the
 device-resident keyframe store; once a vocabulary exists, the keyframe's
-tf-idf BoW row goes into the database.  `detect_loop` gates candidates
-(BoW similarity in the temporal window, adaptive minimum score, neighbour
-consistency), verifies the survivor (mutual-ratio ORB matching through the
-hamming kernel, PnP RANSAC, translation/rotation accept gates) and
-`optimize_graph` runs the windowed pose graph and re-bases the keyframes
-after the window onto the new drift.
+tf-idf BoW row (bowassign kernel) goes into the database.  The candidate
+gate scores a query against the database (BoW similarity in the temporal
+window, adaptive minimum score, neighbour consistency), verification runs
+on the survivor (mutual-ratio ORB matching through the hamming kernel, PnP
+RANSAC, translation/rotation accept gates) and `optimize_graph` runs the
+windowed pose graph and re-bases the keyframes after the window onto the
+new drift.
+
+Two ways in, with the reference's semantics:
+  - stepwise: `add_keyframe` + `detect_loop`, resolved at once (the
+    reference's process_frame path);
+  - chunked: `add_keyframes_batch` ingests a chunk's keyframes and makes
+    their BoW rows in one transform_rows, `gate_candidates` computes the
+    gate rows of the chunk's queries, and the caller resolves them one
+    chunk later (`dispatch_verify` → verification) and the verification
+    statistics one chunk after that (`resolve_verify`), each fetched with
+    the chunk's packed outputs (pipeline/runner.LoopStage).
+    The gate rows and statistics are computed when they are dispatched, on
+    the database and poses of that moment, as the reference's dispatched
+    programs see them.
 
 Differences from the reference, by design:
-  - Stepwise only: gate and verification resolve at once (the reference's
-    chunked replay defers them one chunk each, `_finish_chunk`); the
-    batched ingest `add_keyframes_batch`, the mesh-sharded database, the
-    loop/PGO devices, debug dumps and RGB-D depth lookup are not ported.
+  - Not ported: the mesh-sharded database, the loop/PGO devices, debug
+    dumps and RGB-D depth lookup.
+  - No shape padding: the reference pads its ingest to blocks of {32, 8, 4}
+    keyframes and its verification to buckets of 8 pairs to keep XLA shapes
+    stable, then drops the padded results.  Every BoW row and every
+    verification is computed on its own, so the port ingests, transforms
+    and verifies only the real rows and pairs, with the same results.
   - Random draws: the verification's PnP RANSAC scores (the reference's
     jax.random.PRNGKey(i·7919 + j), loop_closing.py:977,1062) come from
     `_verify_scores`, a torch.Generator seeded with i·7919 + j; the
@@ -75,6 +91,12 @@ def _gate_row(db, valid_rows, k: int, lo: int, hi: int, nb_dist: int):
     nb = in_win & (torch.abs(idxs - cand) <= nb_dist) & (idxs != cand)
     close = torch.sum(nb & (sims >= 0.8 * lc_min))
     return torch.stack([cand.to(torch.float32), best, close.to(torch.float32), lc_min])
+
+
+def _gate_rows(db, valid_rows, ks, los, his, nb_dist: int):
+    """_gate_row for M queries → (M, 4) float32."""
+    return torch.stack([_gate_row(db, valid_rows, k, lo, hi, nb_dist)
+                        for k, lo, hi in zip(ks, los, his)])
 
 
 def _gate_decision(row, lo: int, hi: int, cfg: LoopConfig):
@@ -164,18 +186,24 @@ class LoopCloser:
         return _PoseView(self, "kf_q_odom", "kf_t_odom")
 
     # ------------------------------------------------------------------ add
-    def add_keyframe(self, img_l, img_r, T_c_w_odom: SE3, frame_id: int) -> int:
-        """Ingest one keyframe (host arrays or tensors): features, depth,
-        store rows, poses and, once a vocabulary exists, its BoW row.
-        Returns its keyframe index."""
-        k = self.count
-        if k >= self.bow_db.shape[0]:
-            self._grow()
+    def _as_device(self, img):
+        return img.to(self.device) if torch.is_tensor(img) else \
+            torch.as_tensor(np.asarray(img), device=self.device)
+
+    def _set_pose_rows(self, r0: int, T_c_w_odom: SE3) -> None:
+        """Rows r0.. of the pose tables from (M,)-batched T_c_w odometry
+        poses: the odometry pose as T_w_c, and the node pose at its
+        drift-corrected value T_map_odom ∘ T_w_c."""
         dev = self.device
-        img_l = torch.as_tensor(np.asarray(img_l) if not torch.is_tensor(img_l) else img_l,
-                                device=dev)
-        img_r = torch.as_tensor(np.asarray(img_r) if not torch.is_tensor(img_r) else img_r,
-                                device=dev)
+        T_wc = se3m.inverse(SE3(T_c_w_odom.q.to(dev), T_c_w_odom.t.to(dev)))
+        T_node = se3m.compose(self.T_map_odom, T_wc)
+        m = T_wc.q.shape[0]
+        self.kf_q_odom[r0:r0 + m], self.kf_t_odom[r0:r0 + m] = T_wc.q, T_wc.t
+        self.kf_q[r0:r0 + m], self.kf_t[r0:r0 + m] = T_node.q, T_node.t
+
+    def _ingest_row(self, k: int, img_l, img_r):
+        """ORB + depth of one keyframe into store row k; returns (desc,
+        kp_valid)."""
         uv, desc, kp_valid, p_c, pc_valid = _ingest(img_l, img_r, self.cam,
                                                     self.cfg.num_orb_features)
         self.kf_uv[k] = uv
@@ -183,12 +211,18 @@ class LoopCloser:
         self.kf_kp_valid[k] = kp_valid
         self.kf_pc[k] = p_c
         self.kf_pc_valid[k] = pc_valid
+        return desc, kp_valid
+
+    def add_keyframe(self, img_l, img_r, T_c_w_odom: SE3, frame_id: int) -> int:
+        """Ingest one keyframe (host arrays or tensors): features, depth,
+        store rows, poses and, once a vocabulary exists, its BoW row.
+        Returns its keyframe index."""
+        k = self.count
+        if k >= self.bow_db.shape[0]:
+            self._grow()
+        desc, kp_valid = self._ingest_row(k, self._as_device(img_l), self._as_device(img_r))
         self.kf_frame_id[k] = frame_id
-        # New nodes enter at their drift-corrected pose.
-        T_wc = se3m.inverse(SE3(T_c_w_odom.q.to(dev), T_c_w_odom.t.to(dev)))
-        T_node = se3m.compose(self.T_map_odom, T_wc)
-        self.kf_q_odom[k], self.kf_t_odom[k] = T_wc.q, T_wc.t
-        self.kf_q[k], self.kf_t[k] = T_node.q, T_node.t
+        self._set_pose_rows(k, SE3(T_c_w_odom.q[None], T_c_w_odom.t[None]))
         if self.vocab is None:
             self._desc_buffer.append((desc, kp_valid))
             if k + 1 >= 8:
@@ -198,6 +232,40 @@ class LoopCloser:
         self.count += 1
         self._maybe_refresh_vocab()
         return k
+
+    def add_keyframes_batch(self, imgs_l, imgs_r, sel, q, t, frame_ids) -> list:
+        """Ingest a chunk's keyframes (the reference's chunked-replay path).
+
+        imgs_l/imgs_r: (T, H, W) stacks of the chunk's frames (host arrays
+        or tensors); sel: chunk indices of its keyframes; q/t: (M, 4)/(M, 3)
+        host arrays, the keyframes' T_c_w odometry poses; frame_ids: their
+        global frame ids.  Each keyframe is ingested into its store row, the
+        pose rows are written together and, once a vocabulary exists, the
+        BoW rows are made by one transform_rows.  Without a vocabulary the
+        descriptors are buffered, and the vocabulary is trained after the
+        whole chunk once ≥ 8 keyframes exist (back-filling every row).
+        Returns the assigned keyframe indices."""
+        M = len(sel)
+        if M == 0:
+            return []
+        while self.count + M > self.bow_db.shape[0]:
+            self._grow()
+        imgs_l, imgs_r = self._as_device(imgs_l), self._as_device(imgs_r)
+        c0 = self.count
+        for i, f in enumerate(sel):
+            self._ingest_row(c0 + i, imgs_l[int(f)], imgs_r[int(f)])
+        self._set_pose_rows(c0, SE3(torch.as_tensor(np.asarray(q, np.float32)),
+                                    torch.as_tensor(np.asarray(t, np.float32))))
+        if self.vocab is None:
+            self._desc_buffer.append((self.kf_desc[c0:c0 + M], self.kf_kp_valid[c0:c0 + M]))
+        else:
+            self._set_db_rows(c0, c0 + M)
+        self.kf_frame_id[c0:c0 + M] = np.asarray(frame_ids, np.int64)
+        self.count += M
+        if self.vocab is None and self.count >= 8:
+            self._train_vocab()       # back-fills every row, this chunk's too
+        self._maybe_refresh_vocab()
+        return list(range(c0, c0 + M))
 
     def _grow(self) -> None:
         """Double the keyframe capacity of every table."""
@@ -217,11 +285,11 @@ class LoopCloser:
         self.kf_q, self.kf_t = qpad(self.kf_q), zpad(self.kf_t)
         self.kf_frame_id = np.concatenate([self.kf_frame_id, np.full(K, -1, np.int64)])
 
-    def _set_db_rows(self, n: int) -> None:
-        """(Re)compute the BoW rows of keyframes [0, n) from their stored
-        descriptors."""
-        for r in range(n):
-            self.bow_db[r] = bow.transform(self.vocab, self.kf_desc[r], self.kf_kp_valid[r])
+    def _set_db_rows(self, r0: int, r1: int) -> None:
+        """BoW rows [r0, r1) from their stored descriptors, in one
+        transform_rows (the reference's _bow_rows)."""
+        self.bow_db[r0:r1] = bow.transform_rows(self.vocab, self.kf_desc[r0:r1],
+                                                self.kf_kp_valid[r0:r1])
 
     def _train_vocab(self):
         """Train the vocabulary from the buffered keyframes once they hold at
@@ -233,7 +301,7 @@ class LoopCloser:
                                num_words=self.cfg.vocab_words, iters=6)
         self._in_run_vocab = True
         self._desc_buffer.clear()
-        self._set_db_rows(self.count)
+        self._set_db_rows(0, self.count)
 
     def _maybe_refresh_vocab(self):
         """Retrain the in-run vocabulary on a fixed 8192-descriptor sample
@@ -250,7 +318,7 @@ class LoopCloser:
         all_desc = all_desc[torch.as_tensor(sel, device=all_desc.device)]
         self.vocab = bow.train(all_desc, torch.ones(8192, dtype=torch.bool),
                                num_words=cfg.vocab_words, iters=6, seed=1)
-        self._set_db_rows(n)
+        self._set_db_rows(0, n)
         self._next_vocab_refresh = max(self._next_vocab_refresh * 2, n + 1)
 
     # --------------------------------------------------------------- search
@@ -258,25 +326,73 @@ class LoopCloser:
         """Candidate gate + geometric verification for keyframe k, resolved
         at once.  Returns the accepted LoopClosure (also appended to
         self.closures) or None."""
+        hits = self.detect_loops_batch([k])
+        return hits[0] if hits else None
+
+    def detect_loops_batch(self, ks) -> list:
+        """Gate and verify a batch of keyframes at once; returns the accepted
+        LoopClosures."""
+        return self.decide_loops(self.gate_candidates(ks))
+
+    def gate_candidates(self, ks):
+        """The candidate gate of queries ks (those ≥ kf_start), computed now
+        on the current database and left on the device: a pending handle
+        ("rows", ks, los, his, (M, 4) rows) for dispatch_verify, or None."""
         cfg = self.cfg
-        if self.vocab is None or k < cfg.kf_start:
+        ks = [k for k in ks if k >= cfg.kf_start]
+        if self.vocab is None or not ks:
             return None
-        hi = k - cfg.kf_dist
-        lo = max(0, hi - cfg.search_window)
-        if hi <= lo:
-            return None
+        his = [k - cfg.kf_dist for k in ks]
+        los = [max(0, h - cfg.search_window) for h in his]
         valid_rows = torch.arange(self.bow_db.shape[0], device=self.device) < self.count
-        row = _gate_row(self.bow_db, valid_rows, k, lo, hi, cfg.kf_max_dist).tolist()
-        cand = _gate_decision(row, lo, hi, cfg)
-        if cand is None:
+        rows = _gate_rows(self.bow_db, valid_rows, ks, los, his, cfg.kf_max_dist)
+        return ("rows", ks, los, his, rows)
+
+    def pending_rows(self, pending):
+        """The device rows inside a gate_candidates handle, or None."""
+        return pending[4] if pending is not None else None
+
+    def decide_loops(self, pending, rows_np=None) -> list:
+        """Resolve a gate_candidates handle at once: host decisions, then
+        verification."""
+        return self.resolve_verify(self.dispatch_verify(pending, rows_np))
+
+    def dispatch_verify(self, pending, rows_np=None):
+        """Host accept decisions over a gate handle's rows (rows_np: the rows
+        already fetched; fetched here otherwise), then the verification of
+        every candidate pair, left on the device.  Returns None (nothing to
+        verify) or ("verify", cands, (n, 11) statistics)."""
+        if pending is None:
             return None
-        return self._verify_accept(cand, k, self._verify_device(cand, k))
+        _, ks, los, his, rows_dev = pending
+        rows = rows_dev.cpu().numpy() if rows_np is None else rows_np
+        cands = [(cand, k) for k, lo, hi, row in zip(ks, los, his, rows)
+                 for cand in (_gate_decision(row, lo, hi, self.cfg),) if cand is not None]
+        if not cands:
+            return None
+        stats = torch.stack([self._verify_device(i, j) for i, j in cands])
+        return ("verify", cands, stats)
+
+    def pending_verify_arrays(self, handle):
+        """The device statistics inside a dispatch_verify handle, or None."""
+        return handle[2] if handle is not None else None
+
+    def resolve_verify(self, handle, stats=None) -> list:
+        """The host accept gates over a dispatch_verify handle's statistics
+        (stats: already fetched; fetched here otherwise).  Returns the
+        accepted LoopClosures (also appended to self.closures)."""
+        if handle is None:
+            return []
+        _, cands, stats_dev = handle
+        stats = stats_dev.cpu().numpy() if stats is None else stats
+        return [lc for (i, j), row in zip(cands, stats)
+                for lc in (self._verify_accept(i, j, row),) if lc is not None]
 
     def _verify_device(self, i: int, j: int):
         """Geometric verification of candidate pair (i, j) on the device:
         mutual-ratio matches, PnP RANSAC from keyframe i's world points to
-        j's normalised pixels, and the accept-gate statistics.  Returns
-        (T_ij.q, T_ij.t, n_match, n_inl, |Δt|, |Δlog R|) on the host."""
+        j's normalised pixels, and the accept-gate statistics.  Returns the
+        (11,) float32 row [T_ij.q, T_ij.t, n_match, n_inl, |Δt|, |Δlog R|]."""
         cfg, cam = self.cfg, self.cam
         valid_i = self.kf_kp_valid[i] & self.kf_pc_valid[i]
         match_j, good = orb.mutual_ratio_match(self.kf_desc[i], self.kf_desc[j], valid_i,
@@ -291,23 +407,23 @@ class LoopCloser:
         T_wc_j_meas = se3m.inverse(T_cj_w)
         delta = se3m.compose(se3m.inverse(SE3(self.kf_q[j], self.kf_t[j])), T_wc_j_meas)
         T_ij = se3m.compose(se3m.inverse(T_wc_i), T_wc_j_meas)
-        flat = torch.cat([T_ij.q, T_ij.t, torch.sum(good)[None].to(torch.float32),
+        return torch.cat([T_ij.q, T_ij.t, torch.sum(good)[None].to(torch.float32),
                           n_inl[None].to(torch.float32),
                           torch.linalg.vector_norm(delta.t)[None],
-                          torch.linalg.vector_norm(so3.log(delta.q))[None]]).cpu()
-        return flat[:4], flat[4:7], int(flat[7]), int(flat[8]), float(flat[9]), float(flat[10])
+                          torch.linalg.vector_norm(so3.log(delta.q))[None]])
 
-    def _verify_accept(self, i: int, j: int, stats) -> Optional[LoopClosure]:
-        """Host accept gates over the verification statistics."""
+    def _verify_accept(self, i: int, j: int, row) -> Optional[LoopClosure]:
+        """Host accept gates over one fetched statistics row."""
         cfg = self.cfg
-        q_ij, t_ij, n_match, n_inl, dt, dr = stats
+        n_match, n_inl, dt, dr = int(row[7]), int(row[8]), float(row[9]), float(row[10])
         if n_match < cfg.min_pts:
             return None
         if n_inl < cfg.min_pts or n_inl < cfg.ratio_ransac * n_match:
             return None
         if dt > cfg.max_trans or dr > cfg.max_rot:
             return None
-        lc = LoopClosure(i, j, n_inl, SE3(q_ij, t_ij))
+        row = torch.as_tensor(np.asarray(row, np.float32))
+        lc = LoopClosure(i, j, n_inl, SE3(row[:4], row[4:7]))
         self.closures.append(lc)
         return lc
 

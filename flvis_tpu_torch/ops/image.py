@@ -4,8 +4,10 @@
 Images are float32 (..., H, W) in [0, 255]; sampling is clamp-to-edge.
 The reference's TPU idioms are ported in their direct form, with the same
 results:
-  - one-hot selection-matmul block gathers (image.py:252-316) → an indexed
-    gather, with the start corners clamped exactly as the CPU
+  - one-hot selection-matmul block gathers (image.py:252-316) → the
+    gather_windows kernel (ops/kernels/gather.py; its plain version, an
+    indexed gather, on a CPU tensor), reading the unpadded image through an
+    edge border, with the start corners clamped exactly as the CPU
     `dynamic_slice` path clamps them (image.py:274-282);
   - the one-hot matmul decimation (image.py:78-92) → a strided slice;
   - the 16×16 factorised equalize_hist (image.py:371-409) → torch.bincount
@@ -16,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .kernels.gather import gather_windows
 
 # 5-tap binomial kernel used by cv::pyrDown.
 _PYR_K = np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
@@ -122,19 +126,13 @@ def bilinear_sample(img, xy):
             + v10 * (1 - fx) * fy + v11 * fx * fy)
 
 
-def _gather_blocks(padded, cx, cy, size: int):
-    """Per-point (size, size) blocks at top-left corners (cx, cy) of
-    `padded`: (H, W) → (N, size, size); (C, H, W) → (N, C, size, size).
-    Corners are clamped to [0, dim - size] like jax.lax.dynamic_slice."""
-    hp, wp = padded.shape[-2:]
-    cx = torch.clamp(cx.long(), 0, wp - size)
-    cy = torch.clamp(cy.long(), 0, hp - size)
-    ar = torch.arange(size, device=padded.device)
-    rows = (cy[:, None] + ar)[:, :, None]
-    cols = (cx[:, None] + ar)[:, None, :]
-    if padded.dim() == 2:
-        return padded[rows, cols]
-    return padded[:, rows, cols].permute(1, 0, 2, 3)
+def _gather_blocks(img, cx, cy, size: int, pad: int):
+    """Per-point (size, size) blocks of `img` edge-padded by `pad`, at
+    top-left corners (cx, cy) in padded coordinates: (H, W) → (N, size,
+    size); (C, H, W) → (N, C, size, size).  Corners are clamped to
+    [0, dim + 2·pad − size] like jax.lax.dynamic_slice; no padded copy is
+    made on the card (ops/kernels/gather.py)."""
+    return gather_windows(img.contiguous(), cx, cy, size, pad)
 
 
 def _blend4(P, fx, fy):
@@ -157,7 +155,7 @@ def extract_patches(img, centers, radius: int):
     h, w = img.shape
     pad = radius + 2
     xi, yi, fx, fy = _subpixel_corners(centers, h, w, radius, pad)
-    P = _gather_blocks(edge_pad(img, pad), xi, yi, 2 * radius + 2)
+    P = _gather_blocks(img, xi, yi, 2 * radius + 2, pad)
     return _blend4(P, fx[:, None, None], fy[:, None, None])
 
 
@@ -167,7 +165,7 @@ def extract_patches_int(img, centers, radius: int):
     pad = radius + 1
     xi = torch.clamp(centers[:, 0].long(), -1, w) - radius + pad
     yi = torch.clamp(centers[:, 1].long(), -1, h) - radius + pad
-    return _gather_blocks(edge_pad(img, pad), xi, yi, 2 * radius + 1)
+    return _gather_blocks(img, xi, yi, 2 * radius + 1, pad)
 
 
 def extract_patches_multi(stack, centers, radius: int):
@@ -176,7 +174,7 @@ def extract_patches_multi(stack, centers, radius: int):
     _, h, w = stack.shape
     pad = radius + 2
     xi, yi, fx, fy = _subpixel_corners(centers, h, w, radius, pad)
-    P = _gather_blocks(edge_pad(stack, pad), xi, yi, 2 * radius + 2)
+    P = _gather_blocks(stack, xi, yi, 2 * radius + 2, pad)
     return _blend4(P, fx[:, None, None, None], fy[:, None, None, None])
 
 
@@ -188,7 +186,7 @@ def extract_windows(img, corners, window: int):
     pad = window
     cx = torch.clamp(corners[:, 0].long(), -pad, w)
     cy = torch.clamp(corners[:, 1].long(), -pad, h)
-    wins = _gather_blocks(edge_pad(img, pad), cx + pad, cy + pad, window)
+    wins = _gather_blocks(img, cx + pad, cy + pad, window, pad)
     return wins, torch.stack([cx, cy], dim=-1)
 
 

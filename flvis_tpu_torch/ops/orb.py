@@ -23,7 +23,8 @@ from .kernels.fastblur import CIRCLE, fast_score_nms_blur
 from .kernels.hamming import hamming_matrix
 
 __all__ = ["fast_score", "orientations_from_patches", "brief_from_patches",
-           "detect_and_compute", "hamming_matrix", "unpack_pm1", "mutual_ratio_match"]
+           "detect_and_compute", "hamming_matrix", "unpack_pm1", "pack_pm1",
+           "mutual_ratio_match"]
 
 
 def fast_score(img, threshold: float = 20.0):
@@ -140,6 +141,12 @@ def unpack_pm1(desc, dtype=torch.float32):
     shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
     bits = (desc[:, :, None] >> shifts[None, None, :]) & 1
     return bits.reshape(desc.shape[0], 256).to(dtype) * 2.0 - 1.0
+
+
+def pack_pm1(pm1):
+    """(N, 256) ±1 → (N, 8) packed words, the inverse of unpack_pm1 (+1 is
+    a set bit)."""
+    return _pack_bits(pm1 > 0)
 
 
 def mutual_ratio_match(desc_a, desc_b, valid_a, valid_b, ratio: float = 0.75,

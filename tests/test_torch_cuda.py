@@ -241,6 +241,7 @@ def test_vio_loop_path_launches_its_kernels(dev):
     out = slam.process_frames_vio(np.stack([f[0] for f in frames]),
                                   np.stack([f[1] for f in frames]), ts=frame_t,
                                   imu_acc=accs, imu_gyro=gyros, imu_t=imuts)
+    slam.flush_loop()               # the chunk's loop gate resolves a chunk late
     d = [k.launches - b for k, b in zip(kernels, before)]
     n_kf = int(out.is_keyframe.sum())
     init_frames = int(np.sum(np.cumsum([len(t) for t in imuts])[:-1] >= cfg.vio.init_samples))
@@ -248,3 +249,77 @@ def test_vio_loop_path_launches_its_kernels(dev):
     assert d[0] >= init_frames > 0
     assert d[1] >= n_kf and d[2] >= n_kf and n_kf == slam.loop_closer.count
     assert len(slam.loop_closer.closures) >= 1 and d[3] >= len(slam.loop_closer.closures)
+
+
+@pytest.mark.parametrize("shape,size,pad,n", [
+    ((480, 752), 39, 39, 256),        # LK level-0 search windows
+    ((3, 480, 752), 22, 12, 256),     # LK level-0 template blocks (img, gx, gy)
+    ((480, 752), 27, 14, 1000),       # ORB patches
+    ((2, 37, 50), 9, 3, 7),           # odd N, small image
+])
+def test_gather_kernel_exact(dev, shape, size, pad, n):
+    """A copy: kernel and plain version agree bit for bit, corners beyond
+    both clamp limits included."""
+    from flvis_tpu_torch.ops.kernels import gather
+
+    rng = np.random.default_rng(n)
+    img = torch.as_tensor(rng.uniform(0, 255, shape), dtype=torch.float32, device=dev)
+    h, w = shape[-2:]
+    cx = torch.as_tensor(rng.integers(-5, w + 2 * pad + 5, n), device=dev)
+    cy = torch.as_tensor(rng.integers(-5, h + 2 * pad + 5, n), device=dev)
+    cx[:2] = torch.tensor([0, w + 2 * pad - size], device=dev)
+    before = gather.gather_windows_kernel.launches
+    got = gather.gather_windows(img, cx, cy, size, pad)
+    ref = gather.gather_windows_plain(img, cx, cy, size, pad)
+    torch.cuda.synchronize()
+    assert gather.gather_windows_kernel.launches == before + 1
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("b,n,v", [(8, 1000, 4096), (3, 37, 1000)])
+def test_bowassign_kernel_exact(dev, b, n, v):
+    """Term frequencies equal the ±1-matmul plain version exactly, with
+    ties forced by duplicated words and some invalid descriptors; the
+    normalised rows of transform_rows follow."""
+    from flvis_tpu_torch.loop import bow
+    from flvis_tpu_torch.ops import orb
+    from flvis_tpu_torch.ops.kernels import bowassign
+
+    rng = np.random.default_rng(v)
+    words = rng.integers(0, 2 ** 32, (v, 8), dtype=np.uint32)
+    words[v // 2:v // 2 + 20] = words[3:23]                   # duplicated words: ties
+    desc = rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32)
+    desc[:, :10] = words[None, 3:13]                          # exact hits on tied words
+    valid = torch.as_tensor(rng.uniform(size=(b, n)) > 0.1, device=dev)
+    words_t = torch.as_tensor(words.view(np.int32), device=dev)
+    desc_t = torch.as_tensor(desc.view(np.int32), device=dev)
+    before = bowassign.bow_tf_kernel.launches
+    got = bowassign.bow_tf(desc_t, valid, words_t)
+    ref = bowassign.bow_tf_plain(desc_t, valid, words_t)
+    torch.cuda.synchronize()
+    assert bowassign.bow_tf_kernel.launches == before + 1
+    assert torch.equal(got, ref) and int(got.sum()) == int(valid.sum())
+    vocab = bow.Vocabulary(orb.unpack_pm1(words_t), torch.ones(v, device=dev))
+    assert torch.equal(vocab.words_packed, words_t)
+    rows = bow.transform_rows(vocab, desc_t, valid)
+    tf = ref.to(torch.float32)
+    assert torch.equal(rows, tf / torch.clamp(tf.sum(1, keepdim=True), min=1e-9))
+
+
+def test_slice_three_kernel_wrappers_refuse_bad_input(dev):
+    from flvis_tpu_torch.ops.kernels import bowassign, gather
+
+    c = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        gather.gather_windows(torch.zeros((8, 8), dtype=torch.float64, device=dev), c, c, 3, 1)
+    with pytest.raises(ValueError, match=r"\(H, W\)"):
+        gather.gather_windows(torch.zeros((1, 1, 8, 8), device=dev), c, c, 3, 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        gather.gather_windows(torch.zeros((8, 8), device=dev), c, c, 12, 1)
+    d = torch.zeros((2, 5, 8), dtype=torch.int32, device=dev)
+    w = torch.zeros((16, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bool"):
+        bowassign.bow_tf(d, torch.ones((2, 5), dtype=torch.uint8, device=dev), w)
+    with pytest.raises(ValueError, match="at most"):
+        bowassign.bow_tf(d, torch.ones((2, 5), dtype=torch.bool, device=dev),
+                         torch.zeros((8000, 8), dtype=torch.int32, device=dev))

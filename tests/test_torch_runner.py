@@ -138,7 +138,7 @@ def test_ate_and_backend_state(runs):
 def test_unported_options_raise():
     scfg = SceneConfig()
     cam = tcam.make(scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline, device="cpu")
-    for kw in ({"pipelined": True}, {"output_sparse_map": True}, {"loop_device": "cpu"}):
+    for kw in ({"output_sparse_map": True}, {"loop_device": "cpu"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trunner.SlamSystem(_cfg(scfg), cam, device="cpu", **kw)
 
