@@ -29,6 +29,7 @@ table (JSON) and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import json
 import statistics
 import subprocess
@@ -52,7 +53,7 @@ PROFILE_FRAMES = 8
 MS_SEQS, MS_CHUNK, MS_CHUNKS = 8, 8, 8    # phase c: 8 sequences × 8 chunks of 8 frames
 # The __global__ functions of each kernel's source, for its device time.
 KERNEL_FNS = {"grad_blur": ("grad_blur_kernel",),
-              "schur_step": ("landmark_pass", "reduce_pass", "solve_pass", "backsub_pass"),
+              "schur_step": ("schur_reduce_solve", "schur_backsub"),
               "imu_chain": ("attitude_chain_kernel",), "fastblur": ("fastblur_kernel",),
               "sweep": ("sweep_kernel",), "hamming": ("hamming_kernel",),
               "bowassign": ("bowassign_kernel",), "gather": ("gather_kernel",)}
@@ -68,50 +69,71 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median milliseconds of fn() between CUDA events."""
-    for _ in range(warmup):
-        fn()
+def cuda_ms(*fns, reps: int = 50, warmup: int = 10):
+    """Median milliseconds of each fn() between CUDA events, the fns timed
+    in turns (the first of each round rotating), so that drift in the
+    host's speed over the measurement falls on all of them alike; the first
+    `warmup` rounds are not kept."""
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+    times = [[] for _ in fns]
+    for r in range(-warmup, reps):
+        for i in range(len(fns)):
+            k = (i + r) % len(fns)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[k]()
+            e1.record()
+            e1.synchronize()
+            if r >= 0:
+                times[k].append(e0.elapsed_time(e1))
+    return [statistics.median(t) for t in times]
 
 
-def device_ms(fn, name: str, reps: int = 20) -> float:
-    """Median device milliseconds per call of fn()'s own kernels (those of
-    KERNEL_FNS[name]), from torch.profiler's CUDA kernel events."""
+def profile_kernels(fn, name: str, reps: int = 20):
+    """torch.profiler over reps calls of fn() → (the median device ms of
+    each __global__ of KERNEL_FNS[name], each launched once a call; the
+    device kernels one call launches, of any name).  The tracer drops
+    kernel events now and then, some profiles whole: a profile in which
+    any __global__ of KERNEL_FNS[name] shows fewer than reps / 2 events is
+    taken again, up to 5 times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # The tracer now and then drops a kernel event; a profile whose event
-    # count is not a whole number per call is taken again, up to 3 times.
-    for attempt in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as p:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evs = sorted((e for e in p.events() if e.device_type == DeviceType.CUDA
-                      and any(k in e.name for k in KERNEL_FNS[name])),
-                     key=lambda e: e.time_range.start)
-        if evs and len(evs) % reps == 0:
+        by_fn = {k: [] for k in KERNEL_FNS[name]}
+        names = collections.Counter()
+        for e in p.events():
+            if e.device_type == DeviceType.CUDA:
+                names[e.name] += 1
+                for k, v in by_fn.items():
+                    if k in e.name:
+                        v.append(e.time_range.elapsed_us())
+        if all(len(v) >= reps // 2 for v in by_fn.values()):
             break
-        print(f"{name}: {len(evs)} kernel events in the profile of {reps} calls "
-              f"(attempt {attempt + 1} of 3)")
+        print(f"{name}: kernel events {({k: len(v) for k, v in by_fn.items()})} in the profile "
+              f"of {reps} calls (attempt {attempt + 1} of 5)")
     else:
-        fail(f"{name}: no profile of {reps} calls held a whole number of events per call")
-    k = len(evs) // reps
-    return statistics.median(sum(e.time_range.elapsed_us() for e in evs[i * k:(i + 1) * k])
-                             for i in range(reps)) / 1000.0
+        fail(f"{name}: no profile of {reps} calls held all its kernels' events")
+    split = {k: statistics.median(v) / 1000.0 for k, v in by_fn.items()}
+    if len(split) > 1:
+        print(f"{name} device ms per call by __global__: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    # A lost event can only lower the count, a kernel seen at all raises it.
+    per_call = max(len(names), -(-sum(names.values()) // reps))
+    return split, per_call
+
+
+def device_ms(fn, name: str) -> float:
+    """Device milliseconds per call of fn()'s own kernels, summed over the
+    __global__ functions of KERNEL_FNS[name] (profile_kernels)."""
+    return sum(profile_kernels(fn, name)[0].values())
 
 
 def bound(nbytes: float, ops: float):
@@ -229,9 +251,9 @@ def check_grad_blur(device):
         xp = imops.edge_pad(x, 2)[:, None].contiguous()
         lib = F.conv2d(xp, wts)
         lib_err = max(float((lib[:, i] - ref[i]).abs().max()) for i in range(3))
-        k_ms = cuda_ms(lambda: gradpyr.grad_blur_kernel(x))
-        p_ms = cuda_ms(lambda: gradpyr.grad_blur_plain(x))
-        l_ms = cuda_ms(lambda: F.conv2d(xp, wts))
+        k_ms, p_ms, l_ms = cuda_ms(lambda: gradpyr.grad_blur_kernel(x),
+                                   lambda: gradpyr.grad_blur_plain(x),
+                                   lambda: F.conv2d(xp, wts))
         dev += device_ms(lambda: gradpyr.grad_blur_kernel(x), "grad_blur")
         print(f"grad_blur (3,{h},{w}): max_abs_err {err:.3e} (tol {GRAD_TOL}), "
               f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, conv2d {l_ms:.4f} ms "
@@ -266,9 +288,14 @@ def check_schur(cfg, cam, device):
     live = st.lm_valid
     errs = {"t": float((Pk.t - Pp.t).abs().max()), "q": float((Pk.q - Pp.q).abs().max()),
             "lm": float((dl_k.T[live] - dl_p.T[live]).abs().max())}
-    k_ms = cuda_ms(lambda: schur.schur_step_kernel(*args, delta))
-    p_ms = cuda_ms(lambda: schur.schur_step_plain(*args, delta))
+    k_ms, p_ms = cuda_ms(lambda: schur.schur_step_kernel(*args, delta),
+                         lambda: schur.schur_step_plain(*args, delta))
     W, L = st.obs_valid.shape
+    split, per_step = profile_kernels(lambda: schur.schur_step_kernel(*args, delta),
+                                      "schur_step")
+    print(f"schur_step: {per_step} device kernels per LM step")
+    if per_step > 2:
+        fail(f"schur_step takes {per_step} launches per LM step, more than 2")
     print(f"schur_step (W={W}, L={L}, {int(live.sum())} live landmarks): errors "
           + ", ".join(f"{k} {v:.3e} (tol {SCHUR_TOL[k]})" for k, v in errs.items())
           + f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
@@ -285,10 +312,8 @@ def check_schur(cfg, cam, device):
     per_lm = wm.sum(0)
     ops = 380.0 * n_obs + 324.0 * float((per_lm * per_lm).sum()) + (6 * W) ** 3 * 2 / 3
     return entry("schur_step", "flvis_tpu_torch/csrc/schur.cu",
-                 "flvis_tpu/ops/pallas/schur.py:305", max(errs.values()),
-                 device_ms(lambda: schur.schur_step_kernel(*args, delta), "schur_step"), k_ms,
-                 p_ms, None,
-                 nbytes, ops)
+                 "flvis_tpu/ops/pallas/schur.py:305", max(errs.values()), sum(split.values()),
+                 k_ms, p_ms, None, nbytes, ops)
 
 
 def check_imu_chain(device):
@@ -309,8 +334,8 @@ def check_imu_chain(device):
     ref = imu_chain.attitude_chain_plain(q0, G, a, c)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    k_ms = cuda_ms(lambda: imu_chain.attitude_chain_kernel(q0, G, a, c))
-    p_ms = cuda_ms(lambda: imu_chain.attitude_chain_plain(q0, G, a, c))
+    k_ms, p_ms = cuda_ms(lambda: imu_chain.attitude_chain_kernel(q0, G, a, c),
+                         lambda: imu_chain.attitude_chain_plain(q0, G, a, c))
     print(f"attitude_chain (P={P}): max_abs_err {err:.3e} (tol {IMU_TOL}), "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     if not err <= IMU_TOL:
@@ -330,8 +355,8 @@ def check_fastblur(img):
     torch.cuda.synchronize()
     err = max(float((s_k - s_p).abs().max()), float((b_k - b_p).abs().max()))
     n_k, n_p = int((s_k > 0).sum()), int((s_p > 0).sum())
-    k_ms = cuda_ms(lambda: fastblur.fast_score_nms_blur_kernel(img))
-    p_ms = cuda_ms(lambda: fastblur.fast_score_nms_blur_plain(img))
+    k_ms, p_ms = cuda_ms(lambda: fastblur.fast_score_nms_blur_kernel(img),
+                         lambda: fastblur.fast_score_nms_blur_plain(img))
     print(f"fast_score_nms_blur {tuple(img.shape)}: max_abs_err {err:.3e} (tol {FAST_TOL}), "
           f"corners {n_k} / {n_p}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     if not err <= FAST_TOL or n_k != n_p:
@@ -359,8 +384,8 @@ def check_sweep(img_l, img_r):
     both = ok_k & ok_p
     err = float((d_k - d_p)[both].abs().max()) if bool(both.any()) else float("inf")
     share = float((ok_k != ok_p).float().mean())
-    k_ms = cuda_ms(lambda: sweep.sweep_maps_kernel(L, R))
-    p_ms = cuda_ms(lambda: sweep.sweep_maps_plain(L, R))
+    k_ms, p_ms = cuda_ms(lambda: sweep.sweep_maps_kernel(L, R),
+                         lambda: sweep.sweep_maps_plain(L, R))
     print(f"sweep_maps {tuple(L.shape)}: disparity max_abs_err {err:.3e} (tol {SWEEP_TOL}) "
           f"over {int(both.sum())} ok pixels, ok masks differ on {share:.2e} "
           f"(tol {SWEEP_OK_SHARE}), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
@@ -386,9 +411,9 @@ def check_hamming(desc_a, desc_b):
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     lib_err = float((lib - ref).abs().max())
-    k_ms = cuda_ms(lambda: hamming.hamming_matrix_kernel(desc_a, desc_b))
-    p_ms = cuda_ms(lambda: hamming.hamming_matrix_plain(desc_a, desc_b))
-    l_ms = cuda_ms(lambda: torch.matmul(pa, pb.T))
+    k_ms, p_ms, l_ms = cuda_ms(lambda: hamming.hamming_matrix_kernel(desc_a, desc_b),
+                               lambda: hamming.hamming_matrix_plain(desc_a, desc_b),
+                               lambda: torch.matmul(pa, pb.T))
     na, nb = desc_a.shape[0], desc_b.shape[0]
     print(f"hamming_matrix ({na}x{nb}): max_abs_err {err} (exact), kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.4f} ms, ±1 matmul {l_ms:.4f} ms (its error {lib_err})")
@@ -427,9 +452,10 @@ def check_bowassign(descs, valids, cfg):
         (torch.arange(B * N, device=desc.device) // N, lib), valid.reshape(-1).to(torch.int32),
         accumulate=True)
     lib_err = int((lib_tf - ref).abs().max())
-    k_ms = cuda_ms(lambda: bowassign.bow_tf_kernel(desc, valid, words))
-    p_ms = cuda_ms(lambda: bowassign.bow_tf_plain(desc, valid, words, vocab.words_pm1))
-    l_ms = cuda_ms(lambda: torch.argmax(d_pm1 @ vocab.words_pm1.T, dim=1))
+    k_ms, p_ms, l_ms = cuda_ms(
+        lambda: bowassign.bow_tf_kernel(desc, valid, words),
+        lambda: bowassign.bow_tf_plain(desc, valid, words, vocab.words_pm1),
+        lambda: torch.argmax(d_pm1 @ vocab.words_pm1.T, dim=1))
     print(f"bow_tf (B={B}, N={N}, V={V}, {int(valid.sum())} valid): max_abs_err {err} (exact), "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, ±1 matmul + argmax {l_ms:.4f} ms "
           f"(its tf error {lib_err})")
@@ -445,10 +471,22 @@ def check_bowassign(descs, valids, cfg):
                  k_ms, p_ms, l_ms, nbytes, ops)
 
 
+def covered_pixels(h, w, ccx, ccy, size, pad):
+    """Distinct pixels of an (h, w) image that (size, size) windows at the
+    clamped padded-image corners (ccx, ccy) read through the edge border."""
+    ar = torch.arange(size, device=ccx.device)
+    rows = torch.clamp(ccy[:, None] - pad + ar, 0, h - 1)
+    cols = torch.clamp(ccx[:, None] - pad + ar, 0, w - 1)
+    mask = torch.zeros((h, w), dtype=torch.bool, device=ccx.device)
+    mask[rows[:, :, None], cols[:, None, :]] = True
+    return int(mask.sum())
+
+
 def check_gather(img, cfg, device):
-    """The block gathers of one LK level-0 step (256 template blocks of the
-    (img, gx, gy) stack, 256 search windows) and one ORB patch gather
-    (1000 keypoints), at their corner clamps."""
+    """Windows mode at the block gathers of one LK level-0 step (256
+    template blocks of the (img, gx, gy) planes, 256 search windows) and one
+    ORB patch gather (1000 keypoints), at their corner clamps; patches mode
+    at the LK template patches (256 points, radius 10, three planes)."""
     from flvis_tpu_torch.ops.kernels import gather
 
     rng = np.random.default_rng(3)
@@ -456,8 +494,8 @@ def check_gather(img, cfg, device):
     fcfg = cfg.frontend
     r, m = fcfg.lk_radius, 8                        # LKParams.search_margin
     wd = 2 * r + 1 + 2 * m + 2
-    stack = torch.stack([img, img * 0.5, img * 0.25]).contiguous()
-    cases = [("LK template blocks", stack, 2 * r + 2, r + 2, fcfg.num_slots),
+    planes = (img, (img * 0.5).contiguous(), (img * 0.25).contiguous())
+    cases = [("LK template blocks", planes, 2 * r + 2, r + 2, fcfg.num_slots),
              ("LK search windows", img, wd, wd, fcfg.num_slots),
              ("ORB patches", img, 27, 14, cfg.loop.num_orb_features)]
     err, dev, k_ms, p_ms, l_ms, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
@@ -474,26 +512,45 @@ def check_gather(img, cfg, device):
         ccx = torch.clamp(cx, 0, W + 2 * pad - size)
         ccy = torch.clamp(cy, 0, H + 2 * pad - size)
         rows, cols = (ccy[:, None] + ar)[:, :, None], (ccx[:, None] + ar)[:, None, :]
-        x3 = x if x.dim() == 3 else x[None]
+        x3 = torch.stack(x) if isinstance(x, tuple) else x[None]
         padded = torch.nn.functional.pad(x3[None], (pad,) * 4, mode="replicate")[0]
 
         def lib():
             return padded[:, rows, cols]
 
         lib_err = float((lib().permute(1, 0, 2, 3).reshape(ref.shape) - ref).abs().max())
-        km = cuda_ms(lambda: gather.gather_windows_kernel(x, cx, cy, size, pad))
-        pm = cuda_ms(lambda: gather.gather_windows_plain(x, cx, cy, size, pad))
-        lm = cuda_ms(lib)
+        km, pm, lm = cuda_ms(lambda: gather.gather_windows_kernel(x, cx, cy, size, pad),
+                             lambda: gather.gather_windows_plain(x, cx, cy, size, pad), lib)
         dm = device_ms(lambda: gather.gather_windows_kernel(x, cx, cy, size, pad), "gather")
-        print(f"gather_windows {label} {tuple(x.shape)} s={size} pad={pad} N={n}: "
+        print(f"gather_windows {label} {tuple(x3.shape)} s={size} pad={pad} N={n}: "
               f"max_abs_err {e} (exact), device {dm:.4f} ms, kernel {km:.4f} ms, plain "
               f"{pm:.4f} ms, indexing {lm:.4f} ms (its error {lib_err})")
         if e != 0:
             fail(f"gather_windows kernel disagrees with its plain version ({label}): {e}")
         err, dev, k_ms, p_ms, l_ms = max(err, e), dev + dm, k_ms + km, p_ms + pm, l_ms + lm
-        nbytes += 2.0 * got.numel() * 4 + 4.0 * x.numel()
-    return entry("gather", "flvis_tpu_torch/csrc/gather.cu",
-                 "flvis_tpu/ops/pallas/gather.py:89", err, dev, k_ms, p_ms, l_ms, nbytes, 0.0)
+        # Bytes: the output written once, the distinct pixels the clamped
+        # windows cover read once per plane, the corners read once.
+        nbytes += (4.0 * got.numel() + 4.0 * x3.shape[0] * covered_pixels(H, W, ccx, ccy, size, pad)
+                   + 16.0 * n)
+    # Patches mode: centres over the image and off its edges.
+    n = fcfg.num_slots
+    cen = torch.as_tensor(rng.uniform([-4.0, -4.0], [W + 4.0, H + 4.0], (n, 2)),
+                          dtype=torch.float32, device=device)
+    got = gather.gather_patches_kernel(planes, cen, r)
+    ref = gather.gather_patches_plain(planes, cen, r)
+    torch.cuda.synchronize()
+    pe = float((got - ref).abs().max())
+    pkm, ppm = cuda_ms(lambda: gather.gather_patches_kernel(planes, cen, r),
+                       lambda: gather.gather_patches_plain(planes, cen, r))
+    pdm = device_ms(lambda: gather.gather_patches_kernel(planes, cen, r), "gather")
+    print(f"gather_patches LK template patches 3 x {tuple(img.shape)} r={r} N={n}: max_abs_err "
+          f"{pe} (exact), device {pdm:.4f} ms, kernel {pkm:.4f} ms, plain {ppm:.4f} ms")
+    if pe != 0:
+        fail(f"gather_patches kernel disagrees with its plain version: {pe}")
+    row = entry("gather", "flvis_tpu_torch/csrc/gather.cu", "flvis_tpu/ops/pallas/gather.py:89",
+                max(err, pe), dev, k_ms, p_ms, l_ms, nbytes, 0.0)
+    row.update(patches_ms=pdm, patches_event_ms=pkm, patches_plain_ms=ppm)
+    return row
 
 
 def kernels():

@@ -211,30 +211,38 @@ def _total_cost(r, w_mask, delta):
     return torch.sum(torch.where(w_mask, rho, 0.0))
 
 
-def _schur_step(cam: StereoCamera, poses: SE3, lm_pw, obs, w_mask, fixed_pose, lam,
-                delta):
-    """One damped Schur LM step through ops/kernels/schur.schur_step.
-    Returns (new_poses, new_lm_pw)."""
+def _schur_consts(cam: StereoCamera, obs, w_mask, fixed_pose):
+    """The Schur step's loop-invariant kernel arguments (obs3, urv, wm,
+    fixed, cam_row), built once per _lm_loop call."""
     obs_uv, obs_ur, ur_valid = obs
     W, L = w_mask.shape
     f32 = torch.float32
-    R = so3.to_matrix(poses.q).reshape(W, 9).contiguous()
     obs3 = torch.stack([obs_uv[..., 0], obs_uv[..., 1], obs_ur], dim=1).reshape(3 * W, L)
     cam_row = torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.fx * cam.baseline])
-    dp, dl = schur_step(R, poses.t.contiguous(), lm_pw.T.contiguous(), obs3.contiguous(),
-                        ur_valid.to(f32), w_mask.to(f32), fixed_pose.to(f32),
-                        cam_row.to(f32), lam.to(f32), float(delta))
+    return (obs3.contiguous(), ur_valid.to(f32), w_mask.to(f32), fixed_pose.to(f32),
+            cam_row.to(f32))
+
+
+def _schur_step(poses: SE3, lm_pw, consts, lam, delta):
+    """One damped Schur LM step through ops/kernels/schur.schur_step, with
+    `consts` = _schur_consts(...) of the window.  Returns (new_poses,
+    new_lm_pw)."""
+    obs3, urv, wm, fixed, cam_row = consts
+    W = wm.shape[0]
+    R = so3.to_matrix(poses.q).reshape(W, 9).contiguous()
+    dp, dl = schur_step(R, poses.t.contiguous(), lm_pw.T.contiguous(), obs3, urv, wm, fixed,
+                        cam_row, lam.to(torch.float32), float(delta))
     return se3m.retract_left(poses, dp), lm_pw + dl.T
 
 
 def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta):
     obs_uv, obs_ur, ur_valid = obs
+    consts = _schur_consts(cam, obs, w_mask, fixed_pose)
     cost = _total_cost(_residuals(cam, poses, lm_pw, obs_uv, obs_ur, ur_valid), w_mask,
                        delta)
     lam = torch.tensor(1e-4, dtype=cost.dtype, device=cost.device)
     for _ in range(iters):
-        new_poses, new_lm = _schur_step(cam, poses, lm_pw, obs, w_mask, fixed_pose,
-                                        lam, delta)
+        new_poses, new_lm = _schur_step(poses, lm_pw, consts, lam, delta)
         new_cost = _total_cost(_residuals(cam, new_poses, new_lm, obs_uv, obs_ur,
                                           ur_valid), w_mask, delta)
         better = new_cost < cost

@@ -5,10 +5,11 @@ Images are float32 (..., H, W) in [0, 255]; sampling is clamp-to-edge.
 The reference's TPU idioms are ported in their direct form, with the same
 results:
   - one-hot selection-matmul block gathers (image.py:252-316) → the
-    gather_windows kernel (ops/kernels/gather.py; its plain version, an
-    indexed gather, on a CPU tensor), reading the unpadded image through an
-    edge border, with the start corners clamped exactly as the CPU
-    `dynamic_slice` path clamps them (image.py:274-282);
+    gather kernel (ops/kernels/gather.py; its plain versions, an indexed
+    gather and the bilinear blend, on a CPU tensor), reading the unpadded
+    image through an edge border, with the start corners clamped exactly as
+    the CPU `dynamic_slice` path clamps them (image.py:274-282); the
+    subpixel patches gather and blend in one launch (patches mode);
   - the one-hot matmul decimation (image.py:78-92) → a strided slice;
   - the 16×16 factorised equalize_hist (image.py:371-409) → torch.bincount
     and a table lookup (256 bins, the only size the reference supports).
@@ -19,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels.gather import gather_windows
+from .kernels.gather import gather_patches, gather_windows
 
 # 5-tap binomial kernel used by cv::pyrDown.
 _PYR_K = np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
@@ -135,28 +136,12 @@ def _gather_blocks(img, cx, cy, size: int, pad: int):
     return gather_windows(img.contiguous(), cx, cy, size, pad)
 
 
-def _blend4(P, fx, fy):
-    return (P[..., :-1, :-1] * (1 - fx) * (1 - fy) + P[..., :-1, 1:] * fx * (1 - fy)
-            + P[..., 1:, :-1] * (1 - fx) * fy + P[..., 1:, 1:] * fx * fy)
-
-
-def _subpixel_corners(centers, h: int, w: int, radius: int, pad: int):
-    x = torch.clamp(centers[:, 0], -1.0, w * 1.0)
-    y = torch.clamp(centers[:, 1], -1.0, h * 1.0)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    return (x0.long() - radius + pad, y0.long() - radius + pad, x - x0, y - y0)
-
-
 def extract_patches(img, centers, radius: int):
     """Subpixel (N, S, S) patches (S = 2r+1) around centers (N, 2) [x, y]:
     one (S+1)² block gather per point from the edge-padded image, then a
-    4-tap bilinear blend with per-point fractional weights."""
-    h, w = img.shape
-    pad = radius + 2
-    xi, yi, fx, fy = _subpixel_corners(centers, h, w, radius, pad)
-    P = _gather_blocks(img, xi, yi, 2 * radius + 2, pad)
-    return _blend4(P, fx[:, None, None], fy[:, None, None])
+    4-tap bilinear blend with per-point fractional weights — one launch of
+    the gather kernel's patches mode on the card."""
+    return gather_patches(img.contiguous(), centers, radius)
 
 
 def extract_patches_int(img, centers, radius: int):
@@ -170,12 +155,11 @@ def extract_patches_int(img, centers, radius: int):
 
 def extract_patches_multi(stack, centers, radius: int):
     """Multi-channel extract_patches: one (C, S+1, S+1) block per point for
-    all channels of stack (C, H, W); returns (N, C, S, S)."""
-    _, h, w = stack.shape
-    pad = radius + 2
-    xi, yi, fx, fy = _subpixel_corners(centers, h, w, radius, pad)
-    P = _gather_blocks(stack, xi, yi, 2 * radius + 2, pad)
-    return _blend4(P, fx[:, None, None, None], fy[:, None, None, None])
+    all channels of stack — a (C, H, W) tensor or a sequence of C (H, W)
+    planes, read in place; returns (N, C, S, S)."""
+    if isinstance(stack, torch.Tensor) and stack.dim() != 3:
+        raise ValueError(f"extract_patches_multi: expected (C, H, W), got {tuple(stack.shape)}")
+    return gather_patches(stack, centers, radius)
 
 
 def extract_windows(img, corners, window: int):

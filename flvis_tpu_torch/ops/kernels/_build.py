@@ -33,19 +33,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C entry points of csrc/*.cu: (name, argtypes).  Every entry returns the
 # cudaError_t of its launches (0 = success) as an int.
 _SIGNATURES = {
     "flvis_grad_blur": [_P, _P, _P, _P, _I, _I, _I, _P],
     "flvis_schur_scratch_floats": [_I, _I],
     "flvis_schur_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P,
-                         _P, _P],
+                         _P, _P, _P],
     "flvis_attitude_chain": [_P, _P, _P, _P, _P, _I, _I, _P],
     "flvis_fast_score_nms_blur": [_P, _P, _P, _I, _I, _F, _I, _F, _P],
     "flvis_sweep_maps": [_P, _P, _P, _P, _P, _I, _I, _P],
     "flvis_hamming_matrix": [_P, _P, _P, _I, _I, _P],
     "flvis_bow_tf": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "flvis_gather_windows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flvis_gather_windows": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _P, _L, _P, _I, _I, _I, _P],
+    "flvis_gather_patches": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _L, _P, _I, _I, _P],
 }
 
 
@@ -127,7 +129,18 @@ def check_launch(name: str, err: int) -> None:
 
 
 def stream_of(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw cudaStream_t of PyTorch's current stream on t's device (the
+    getter Inductor's generated launchers use: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def launch_on(index: int, fn, *args) -> int:
+    """fn(*args) with CUDA device `index` current (a C entry launches on the
+    current device); the common case — it already is — costs one query."""
+    if index == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
 
 
 def require_cuda_f32(name: str, **tensors) -> None:

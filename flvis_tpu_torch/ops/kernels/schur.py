@@ -9,22 +9,35 @@ cam_row (5,) [fx, fy, cx, cy, fx·b], lam () — all float32 — and the static
 Huber threshold delta → dp (W, 6), dl (3, L).
 
 What bounds it on the H100: at W=10, L=1024 the step is ~2 MFLOP and
-~3 MB of traffic, so it is bound by latency, not by flops or bytes — a
+~0.3 MB of inputs, so it is bound by latency, not by flops or bytes — a
 chain of dependent reductions ending in a 60×60 solve.  The design
-(csrc/schur.cu) is four launches on the current stream behind one C entry:
-  (a) one thread per landmark loops over the W poses: stereo residuals,
-      Huber weights, Jacobians, Hll/bl accumulation, the closed-form damped
-      3×3 inverse, and per-landmark Hpl, A = Hpl·Hll⁻¹ and Hpp/bp partials
-      written to scratch;
-  (b) one block per (w, v) pose pair sums A·Hplᵀ (plus Hpp, bp and A·bl on
-      the diagonal) over L with a fixed-order warp/tree reduction — no float
-      atomics, so results repeat bit for bit from run to run — and writes
-      the damped reduced system with the gauge identity block;
-  (c) one block solves the ≤96×96 system by Cholesky in shared memory
-      (double precision: the float32 plain path is the noisier side);
-  (d) one thread per landmark back-substitutes dl = Hll⁻¹(bl − Hplᵀ dp).
-The TPU's single-program unrolled form is not carried over: blocks on
-Hopper run in parallel, so the cross-landmark sums are a separate pass.
+(csrc/schur.cu) is two launches on the current stream behind one C entry:
+  (1) one block per tile of 16 landmarks (64 blocks at L=1024), one thread
+      per (pose, landmark) pair: stereo residuals, Huber weights and
+      Jacobians; Hll/bl summed over the poses in shared memory, the damped
+      closed-form 3×3 inverse and A = Hpl·Hll⁻¹; the tile's share of the
+      reduced system (the upper block triangle of Hpp − A·Hplᵀ, bp − A·bl
+      and the Hpp diagonal) in shared memory.  Clusters of 8 blocks sum
+      their tiles through distributed shared memory; the last block to
+      finish sums the cluster partials, adds the damping and the gauge
+      identity block, and solves the ≤96×96 system by 6×6 block Gaussian
+      elimination without pivoting (closed-form 6×6 block inverses, as
+      flvis_tpu/ops/linalg.py:block_spd_solve) in double precision in
+      shared memory — the float32 plain path is the noisier side.  A
+      diagonal block without an inverse (non-positive or non-finite
+      determinant) is left out and its pose gets dp = 0; an unobserved pose
+      or an empty slot of a window with count < 3 keeps a positive,
+      damped diagonal and gets dp = 0 exactly, as the plain solve gives;
+  (2) the same tiles recompute their Jacobians, Hll and bl and write
+      dl = Hll⁻¹(bl − Hplᵀ dp).
+Every sum runs in a fixed order and no float atomics are used, so results
+repeat bit for bit from run to run.  The TPU's single-program unrolled
+form is not carried over: blocks on Hopper run in parallel, so the
+cross-tile sums go through shared memory of a cluster and a
+last-block-done pass.  The last block is found by an integer ticket that
+belongs to the stream (`_ticket`): zeroed once, reset by the last block of
+every call, so calls on one stream follow each other and calls on
+different streams never share it.
 Windows of more than 16 poses are refused (the solve's shared memory is
 sized for 96 unknowns, as the TPU kernel's routing limit W ≤ 16).
 """
@@ -36,6 +49,7 @@ import torch
 from . import _build
 
 MAX_WINDOW = 16
+_TICKETS: dict = {}     # (device index, raw stream) -> the stream's uint32 ticket
 
 
 def schur_step_plain(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float):
@@ -126,7 +140,7 @@ def sym3_inv(H):
 
 
 def schur_step_kernel(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float):
-    """Launch csrc/schur.cu's four passes on the current stream."""
+    """Launch csrc/schur.cu's two passes on the current stream."""
     _build.require_cuda_f32("schur_step", R=R, t=t, pw=pw, obs3=obs3, urv=urv, wm=wm,
                             fixed=fixed, cam_row=cam_row, lam=lam)
     W, L = wm.shape
@@ -141,6 +155,7 @@ def schur_step_kernel(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float
     if not 1 <= W <= MAX_WINDOW or L < 1:
         raise ValueError(f"schur_step: window {W} not in [1, {MAX_WINDOW}] or L={L} < 1")
     lib, _ = _build.load_library()
+    stream = _build.stream_of(pw)
     scratch = torch.empty(lib.flvis_schur_scratch_floats(W, L), dtype=torch.float32,
                           device=pw.device)
     dp = torch.empty((W, 6), dtype=torch.float32, device=pw.device)
@@ -149,14 +164,24 @@ def schur_step_kernel(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float
         err = lib.flvis_schur_step(
             R.data_ptr(), t.data_ptr(), pw.data_ptr(), obs3.data_ptr(), urv.data_ptr(),
             wm.data_ptr(), fixed.data_ptr(), cam_row.data_ptr(), lam.data_ptr(),
-            float(delta), W, L, scratch.data_ptr(), dp.data_ptr(), dl.data_ptr(),
-            _build.stream_of(pw))
+            float(delta), W, L, scratch.data_ptr(), _ticket(pw.device, stream).data_ptr(),
+            dp.data_ptr(), dl.data_ptr(), stream)
     _build.check_launch("schur_step", err)
     schur_step_kernel.launches += 1
     return dp, dl
 
 
 schur_step_kernel.launches = 0
+
+
+def _ticket(device, stream: int):
+    """The last-block ticket of `stream` on `device`: made zero on that
+    stream at its first use; every call leaves it 0 again."""
+    key = (device.index, stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return ticket
 
 
 def schur_step(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float):

@@ -64,8 +64,9 @@ def _track_level(img_prev, grad_x, grad_y, img_next, pts_prev, flow, valid,
     wd = s + 2 * m + 2
     n = pts_prev.shape[0]
 
-    tgg = imops.extract_patches_multi(torch.stack([img_prev, grad_x, grad_y]),
-                                      pts_prev, r)
+    # The three planes are read in place (gx, gy are views of grad_blur's
+    # outputs): no stacked copy.
+    tgg = imops.extract_patches_multi((img_prev, grad_x, grad_y), pts_prev, r)
     gx, gy = tgg[:, 1], tgg[:, 2]
     G = torch.stack([gx.reshape(n, -1), gy.reshape(n, -1)], dim=-1)   # (N, S², 2)
     A = torch.einsum("nsk,nsl->nkl", G, G)

@@ -323,3 +323,187 @@ def test_slice_three_kernel_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError, match="at most"):
         bowassign.bow_tf(d, torch.ones((2, 5), dtype=torch.bool, device=dev),
                          torch.zeros((8000, 8), dtype=torch.int32, device=dev))
+
+
+def _clamp_edge_corners(rng, n, dim, size, pad):
+    """Corners over [-5, dim + 2 pad - size + 5], every clamp edge included."""
+    c = rng.integers(-5, dim + 2 * pad - size + 6, n)
+    edges = [-5, 0, dim + 2 * pad - size, dim + 2 * pad - size + 5]
+    c[:min(n, 4)] = edges[:min(n, 4)]
+    return c
+
+
+@pytest.mark.parametrize("size", [22, 27, 39])
+@pytest.mark.parametrize("n", [1, 255, 1000])
+def test_gather_modes_exact(dev, size, n):
+    """Both modes equal their plain versions bit for bit on one plane, a
+    (3, H, W) stack and three separate planes, corners and centres on every
+    clamp edge and off the image; each launch counts once."""
+    from flvis_tpu_torch.ops.kernels import gather
+
+    rng = np.random.default_rng(size * n)
+    h, w = 480, 752
+    stack = torch.as_tensor(rng.uniform(0, 255, (3, h, w)), dtype=torch.float32, device=dev)
+    planes = tuple(p.contiguous() for p in stack)
+    pad = size // 2
+    cx = torch.as_tensor(_clamp_edge_corners(rng, n, w, size, pad), device=dev)
+    cy = torch.as_tensor(_clamp_edge_corners(rng, n, h, size, pad)[::-1].copy(), device=dev)
+    r = (size - 1) // 2
+    cen = rng.uniform([-6.0, -6.0], [w + 6.0, h + 6.0], (n, 2))
+    cen[:min(n, 4)] = [[-1.5, h + 3.5], [w + 0.0, -1.0], [0.0, 0.0], [w - 1.0, h - 1.0]][:min(n, 4)]
+    cen = torch.as_tensor(cen, dtype=torch.float32, device=dev)
+    before = gather.gather_windows_kernel.launches
+    for img in (stack[0], stack, planes):
+        got = gather.gather_windows(img, cx, cy, size, pad)
+        ref = gather.gather_windows_plain(img, cx, cy, size, pad)
+        gp = gather.gather_patches(img, cen, r)
+        rp = gather.gather_patches_plain(img, cen, r)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.equal(got, ref)
+        assert gp.shape == rp.shape and torch.equal(gp, rp)
+    # strided corners and centres, as views of (N, 2) tensors
+    both = torch.stack([cx, cy], -1)
+    got = gather.gather_windows(stack, both[:, 0], both[:, 1], size, pad)
+    cen_t = cen.T.contiguous().T
+    gp = gather.gather_patches(planes, cen_t, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.gather_windows_plain(stack, cx, cy, size, pad))
+    assert torch.equal(gp, gather.gather_patches_plain(planes, cen, r))
+    assert gather.gather_windows_kernel.launches == before + 8
+
+
+def _schur_args(dev, W, L, lam, seed=0, fixed_at=0, empty=None, n_kf=None):
+    """Kernel arguments of a synthetic window: W poses along x looking at
+    landmarks 4-14 m ahead, 60 % of the L slots live, each observed by a
+    pose with probability 0.8 (pixel noise 0.5), stereo on 70 % of those;
+    pose `fixed_at` fixed, pose `empty` without observations, and slots
+    from `n_kf` on empty (a window of count n_kf)."""
+    from flvis_tpu_torch.geometry import so3
+
+    rng = np.random.default_rng(seed)
+    f = dict(dtype=torch.float32, device=dev)
+    q = so3.exp(torch.as_tensor(rng.normal(0, 0.02, (W, 3)), **f))
+    R = so3.to_matrix(q).reshape(W, 9).contiguous()
+    t = torch.as_tensor(np.stack([-0.1 * np.arange(W), rng.normal(0, 0.01, W),
+                                  rng.normal(0, 0.01, W)], -1), **f).contiguous()
+    pw = torch.as_tensor(rng.uniform([-4, -3, 4], [4, 3, 14], (L, 3)).T, **f).contiguous()
+    fx, fy, cx, cy, b = 458.0, 458.0, 376.0, 240.0, 0.11
+    pc = torch.einsum("wab,bl->wal", R.reshape(W, 3, 3), pw) + t[:, :, None]
+    u = fx * pc[:, 0] / pc[:, 2] + cx
+    v = fy * pc[:, 1] / pc[:, 2] + cy
+    ur = fx * (pc[:, 0] - b) / pc[:, 2] + cx
+    obs3 = (torch.stack([u, v, ur], 1)
+            + torch.as_tensor(rng.normal(0, 0.5, (W, 3, L)), **f)).reshape(3 * W, L).contiguous()
+    live = rng.uniform(size=L) < 0.6
+    wm = (rng.uniform(size=(W, L)) < 0.8) & live[None]
+    if empty is not None:
+        wm[empty] = False
+    if n_kf is not None:
+        wm[n_kf:] = False
+    urv = wm & (rng.uniform(size=(W, L)) < 0.7)
+    fixed = np.zeros(W)
+    fixed[fixed_at] = 1.0
+    args = (R, t, pw, obs3, torch.as_tensor(urv, **f), torch.as_tensor(wm, **f),
+            torch.as_tensor(fixed, **f), torch.tensor([fx, fy, cx, cy, fx * b], **f),
+            torch.tensor(lam, **f))
+    return args, q, torch.as_tensor(wm.any(0), device=dev)
+
+
+def _check_schur(dev, args, q, observed):
+    from flvis_tpu_torch.geometry import se3
+    from flvis_tpu_torch.ops.kernels import schur
+
+    before = schur.schur_step_kernel.launches
+    dp, dl = schur.schur_step(*args, 2.0)
+    dp2, dl2 = schur.schur_step_kernel(*args, 2.0)
+    pdp, pdl = schur.schur_step_plain(*args, 2.0)
+    torch.cuda.synchronize()
+    assert schur.schur_step_kernel.launches == before + 2
+    assert torch.equal(dp, dp2) and torch.equal(dl, dl2)          # fixed-order sums
+    assert bool(torch.isfinite(dp).all()) and bool(torch.isfinite(dl).all())
+    T = se3.SE3(q, args[1])
+    Pk, Pp = se3.retract_left(T, dp), se3.retract_left(T, pdp)
+    assert float((Pk.t - Pp.t).abs().max()) <= SCHUR_TOL["t"]
+    assert float((Pk.q - Pp.q).abs().max()) <= SCHUR_TOL["q"]
+    if bool(observed.any()):
+        assert float((dl.T[observed] - pdl.T[observed]).abs().max()) <= SCHUR_TOL["lm"]
+    return dp
+
+
+@pytest.mark.parametrize("W", [1, 3, 10, 16])
+@pytest.mark.parametrize("L", [1, 1000, 1024])
+@pytest.mark.parametrize("lam", [1e-3, 1e-1])
+def test_schur_kernel_windows(dev, W, L, lam):
+    args, q, observed = _schur_args(dev, W, L, lam, seed=W * L)
+    _check_schur(dev, args, q, observed)
+
+
+@pytest.mark.parametrize("case", ["fixed_not_first", "unobserved_pose", "count_below_3"])
+def test_schur_kernel_edge_windows(dev, case):
+    """The fixed pose elsewhere than slot 0; a pose with no observation; a
+    window of count 2 in 10 slots (window_ba.optimize runs the step there
+    too).  Poses without observations keep dp = 0."""
+    kw = {"fixed_not_first": dict(fixed_at=6), "unobserved_pose": dict(empty=4),
+          "count_below_3": dict(n_kf=2)}[case]
+    args, q, observed = _schur_args(dev, 10, 1024, 1e-3, seed=7, **kw)
+    dp = _check_schur(dev, args, q, observed)
+    unobserved = args[5].sum(1) == 0
+    assert torch.equal(dp[unobserved], torch.zeros_like(dp[unobserved]))
+    assert torch.equal(dp[args[6] > 0.5], torch.zeros_like(dp[args[6] > 0.5]))
+
+
+def test_schur_kernel_on_two_streams(dev):
+    """Steps queued on two streams behind one gate, so that they run at
+    once, give what the same steps give one after the other: each stream
+    keeps its own last-block ticket."""
+    from flvis_tpu_torch.ops.kernels import schur
+
+    cases = [_schur_args(dev, 10, 1024, lam, seed=s)[0] for s, lam in ((1, 1e-3), (2, 1e-1))]
+    ref = [schur.schur_step_kernel(*a, 2.0) for a in cases]
+    torch.cuda.synchronize()
+    gate, streams = torch.cuda.Stream(dev), [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(50_000_000)           # holds both queues while they fill
+        opened = torch.cuda.Event()
+        opened.record()
+    outs = [[], []]
+    for s in streams:
+        s.wait_event(opened)
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append(schur.schur_step_kernel(*cases[i], 2.0))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for dp, dl in outs[i]:
+            assert torch.equal(dp, ref[i][0]) and torch.equal(dl, ref[i][1])
+
+
+def test_redesigned_wrappers_refuse_bad_input(dev):
+    from flvis_tpu_torch.ops.kernels import gather, schur
+
+    img = torch.zeros((3, 32, 40), device=dev)
+    c = torch.zeros(4, dtype=torch.int64, device=dev)
+    cen = torch.zeros((4, 2), device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather.gather_windows_kernel(img.cpu(), c, c, 3, 1)
+    with pytest.raises(ValueError, match="int64"):
+        gather.gather_windows(img, c.to(torch.int32), c, 3, 1)
+    with pytest.raises(ValueError, match="one shape"):
+        gather.gather_patches((img[0], img[1, :16]), cen, 2)
+    with pytest.raises(ValueError, match="1 to 4"):
+        gather.gather_patches(torch.zeros((5, 32, 40), device=dev), cen, 2)
+    with pytest.raises(ValueError, match=r"\(N, 2\) float32"):
+        gather.gather_patches(img, cen.double(), 2)
+    with pytest.raises(ValueError, match=r"\(N, 2\) float32"):
+        gather.gather_patches(img, cen.cpu(), 2)
+    args, _, _ = _schur_args(dev, 3, 64, 1e-3)
+    with pytest.raises(ValueError, match="CUDA"):
+        schur.schur_step_kernel(*[a.cpu() for a in args], 2.0)
+    with pytest.raises(ValueError, match="float32"):
+        schur.schur_step_kernel(*args[:2], args[2].double(), *args[3:], 2.0)
+    with pytest.raises(ValueError, match="shape"):
+        schur.schur_step_kernel(args[0], args[1][:2], *args[2:], 2.0)
+    big, _, _ = _schur_args(dev, 17, 64, 1e-3)
+    with pytest.raises(ValueError, match="window"):
+        schur.schur_step_kernel(*big, 2.0)

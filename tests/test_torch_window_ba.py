@@ -137,8 +137,8 @@ def test_schur_step_plain_matches_xla_and_pallas(lam):
     tw_mask = torch.as_tensor(np.array(w_mask))
     tfixed = torch.as_tensor(np.array(fixed))
     turv = torch.as_tensor(np.array(urv))
-    tp, tl = twba._schur_step(TCAM, ts.poses(), ts.lm_pw, (ts.obs_uv, ts.obs_ur, turv),
-                              tw_mask, tfixed, torch.tensor(lam), delta)
+    consts = twba._schur_consts(TCAM, (ts.obs_uv, ts.obs_ur, turv), tw_mask, tfixed)
+    tp, tl = twba._schur_step(ts.poses(), ts.lm_pw, consts, torch.tensor(lam), delta)
     live = np.asarray(js.lm_valid)
     for ref_p, ref_l in ((jp, jl), (kp, kl)):
         errs = _step_errors(ref_p, ref_l, tp, tl.numpy(), live)
