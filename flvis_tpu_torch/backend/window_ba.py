@@ -8,8 +8,11 @@ complement, scheduled optimize(iters1) → chi² cull → optimize(iters2), and
 a Correction exported for the tracker.  Per-landmark tensors keep the
 landmark axis last, as in the reference.
 
-Each LM step is ops/kernels/schur.schur_step (the CUDA kernel on a CUDA
-window, the plain version on a CPU one).  The reference's while_loop
+Each LM step is the schur_step CUDA kernel on a CUDA window of at most
+schur.MAX_WINDOW poses with `pallas_schur` set, and schur_step_plain
+otherwise (a CPU window, `pallas_schur=False`, or a wider window, which
+warns as the reference does): `_use_schur_kernel` decides once per
+`optimize` call, before any launch.  The reference's while_loop
 (window_ba.py:434-470) keeps its accept / λ / `done` semantics here with one
 host read of `done` per iteration.
 """
@@ -17,6 +20,7 @@ host read of `done` per iteration.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -26,7 +30,7 @@ from ..config import BackendConfig
 from ..geometry import se3 as se3m, so3
 from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
-from ..ops.kernels.schur import schur_step
+from ..ops.kernels import schur
 from ..frontend.landmark_table import free_slot_order, scatter_rows
 
 
@@ -223,26 +227,36 @@ def _schur_consts(cam: StereoCamera, obs, w_mask, fixed_pose):
             cam_row.to(f32))
 
 
-def _schur_step(poses: SE3, lm_pw, consts, lam, delta):
-    """One damped Schur LM step through ops/kernels/schur.schur_step, with
+def _use_schur_kernel(cfg: BackendConfig, device) -> bool:
+    """Whether optimize's LM steps launch the schur_step kernel: only on a
+    CUDA device, with `pallas_schur` set and a window the kernel takes."""
+    return (torch.device(device).type == "cuda" and cfg.pallas_schur
+            and cfg.window_size <= schur.MAX_WINDOW)
+
+
+def _schur_step(poses: SE3, lm_pw, consts, lam, delta, use_kernel: bool = False):
+    """One damped Schur LM step — the schur_step kernel if `use_kernel`,
+    else schur_step_plain on whatever device the window is — with
     `consts` = _schur_consts(...) of the window.  Returns (new_poses,
     new_lm_pw)."""
     obs3, urv, wm, fixed, cam_row = consts
     W = wm.shape[0]
     R = so3.to_matrix(poses.q).reshape(W, 9).contiguous()
-    dp, dl = schur_step(R, poses.t.contiguous(), lm_pw.T.contiguous(), obs3, urv, wm, fixed,
-                        cam_row, lam.to(torch.float32), float(delta))
+    step = schur.schur_step_kernel if use_kernel else schur.schur_step_plain
+    dp, dl = step(R, poses.t.contiguous(), lm_pw.T.contiguous(), obs3, urv, wm, fixed,
+                  cam_row, lam.to(torch.float32), float(delta))
     return se3m.retract_left(poses, dp), lm_pw + dl.T
 
 
-def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta):
+def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta,
+             use_kernel: bool = False):
     obs_uv, obs_ur, ur_valid = obs
     consts = _schur_consts(cam, obs, w_mask, fixed_pose)
     cost = _total_cost(_residuals(cam, poses, lm_pw, obs_uv, obs_ur, ur_valid), w_mask,
                        delta)
     lam = torch.tensor(1e-4, dtype=cost.dtype, device=cost.device)
     for _ in range(iters):
-        new_poses, new_lm = _schur_step(poses, lm_pw, consts, lam, delta)
+        new_poses, new_lm = _schur_step(poses, lm_pw, consts, lam, delta, use_kernel)
         new_cost = _total_cost(_residuals(cam, new_poses, new_lm, obs_uv, obs_ur,
                                           ur_valid), w_mask, delta)
         better = new_cost < cost
@@ -271,18 +285,26 @@ def optimize(cfg: BackendConfig, cam: StereoCamera, state: WindowState) -> BARes
     ≥ 3 keyframes (Correction.valid)."""
     poses = state.poses()
     w_mask = state.obs_valid & state.kf_valid[:, None] & state.lm_valid[None, :]
+    dev = state.lm_pw.device
+    use_kernel = _use_schur_kernel(cfg, dev)
+    if dev.type == "cuda" and cfg.pallas_schur and not use_kernel:
+        warnings.warn(
+            f"window_size={cfg.window_size} > {schur.MAX_WINDOW}: the schur_step CUDA "
+            f"kernel only supports windows of <= {schur.MAX_WINDOW} poses; taking the "
+            "plain PyTorch step on the card (set BackendConfig.pallas_schur=False to "
+            "silence)", RuntimeWarning, stacklevel=2)
     big = torch.iinfo(torch.int32).max
     fid = torch.where(state.kf_valid, state.kf_frame_id, big)
     fixed_pose = torch.arange(state.window, device=fid.device) == torch.argmin(fid)
 
     obs = (state.obs_uv, state.obs_ur, state.obs_ur_valid & w_mask)
     poses1, lm1, _ = _lm_loop(cam, poses, state.lm_pw, obs, w_mask, fixed_pose,
-                              cfg.iters1, cfg.huber_delta)
+                              cfg.iters1, cfg.huber_delta, use_kernel)
     r1 = _residuals(cam, poses1, lm1, *obs)
     w_mask2 = w_mask & (torch.sum(r1 * r1, dim=1) < cfg.chi2_cull)
     obs2 = (state.obs_uv, state.obs_ur, state.obs_ur_valid & w_mask2)
     poses2, lm2, cost = _lm_loop(cam, poses1, lm1, obs2, w_mask2, fixed_pose,
-                                 cfg.iters2, cfg.huber_delta)
+                                 cfg.iters2, cfg.huber_delta, use_kernel)
 
     ready = state.count >= 3
     poses_out = se3m.where(ready, poses2, poses)

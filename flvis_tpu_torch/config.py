@@ -124,10 +124,10 @@ class BackendConfig:
     iters2: int = 8                     # → cull chi²>3 → optimize(8)
     chi2_cull: float = 9.0
     huber_delta: float = 2.0
-    # Fused Pallas Schur-step kernel (ops/pallas/schur.py): used on real TPUs
-    # for window_size ≤ 16 (larger windows fall back to the XLA path with a
-    # loud warning — see window_ba.optimize).  Disable for vmapped/batched
-    # windows (multi-sequence DP), where the kernel's batching is unproven.
+    # The schur_step CUDA kernel (ops/kernels/schur.py): used on the card for
+    # window_size ≤ 16; larger windows take the plain PyTorch step on the
+    # card with a RuntimeWarning (window_ba.optimize).  False: the plain
+    # step everywhere, silently.
     pallas_schur: bool = True
 
 

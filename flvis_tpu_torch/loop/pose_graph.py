@@ -5,9 +5,11 @@ Nodes are world-from-camera poses T_w_c; edge residual
 r = log(T_ij⁻¹ · (T_i exp ξ_i)⁻¹ · (T_j exp ξ_j)) with exact Jacobians from
 forward-mode autodiff (torch.func.jacfwd, vmapped over the edges), Cauchy
 weights, and one dense solve per LM step.  The LM loop's `while_loop`
-keeps its accept/λ/exit semantics with one host read per iteration.  The
-block-tridiagonal + Woodbury solver (`optimize_banded`, used past 256
-nodes) is not ported yet.
+keeps its accept/λ/exit semantics with one host read per iteration.
+The normal system is assembled in a fixed order with no float atomics
+(`_sum_plan`, built once per `optimize` call), so a graph optimised twice
+on the card gives the same bits.  The block-tridiagonal + Woodbury solver
+(`optimize_banded`, used past 256 nodes) is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +80,49 @@ def _index(T: SE3, idx) -> SE3:
     return SE3(T.q[idx], T.t[idx])
 
 
+def _sum_plan(keys, width: int | None = None):
+    """A fixed-order plan for summing rows that share a key: the rows'
+    positions, grouped by key in a stable sort, padded to `width` (the
+    largest group when None: one host read) with the index len(keys), a
+    zero row the caller appends.  Returns (table (n, width) int64,
+    group_key (n,) int64): group g sums the rows table[g] and lands at
+    group_key[g]; the groups past the last key hold only padding and land
+    at key -1, which the caller sends to a dump row."""
+    n = keys.shape[0]
+    sk, order = torch.sort(keys, stable=True)
+    new = torch.ones(n, dtype=torch.bool, device=keys.device)
+    new[1:] = sk[1:] != sk[:-1]
+    gid = torch.cumsum(new.to(torch.int64), 0) - 1
+    ar = torch.arange(n, device=keys.device)
+    pos = ar - torch.cummax(torch.where(new, ar, 0), 0).values
+    if width is None:
+        width = int(torch.max(pos)) + 1
+    table = torch.full((n, width), n, dtype=torch.int64, device=keys.device)
+    table[gid, pos] = order
+    group_key = torch.full((n,), -1, dtype=torch.int64, device=keys.device)
+    group_key[gid] = sk                  # every write within a group is the same key
+    return table, group_key
+
+
+def _assembly_plan(ii, jj, K: int):
+    """The plans for H's 4E (row, column) blocks [(i,i), (j,j), (i,j), (j,i)]
+    and b's 2E rows [i, j], with one host read for their common width: a
+    node's diagonal block gathers at least as many terms as its b row."""
+    h_plan = _sum_plan(torch.cat([ii * K + ii, jj * K + jj, ii * K + jj, jj * K + ii]))
+    return h_plan, _sum_plan(torch.cat([ii, jj]), h_plan[0].shape[1])
+
+
+def _plan_sum(plan, rows, n_out: int):
+    """Sum `rows` (n, ...) by the plan into (n_out, ...) in the plan's fixed
+    order; outputs no key reaches are zero."""
+    table, group_key = plan
+    padded = torch.cat([rows, torch.zeros_like(rows[:1])])
+    sums = padded[table].sum(dim=1)
+    out = torch.zeros((n_out + 1,) + rows.shape[1:], dtype=rows.dtype, device=rows.device)
+    out[torch.where(group_key < 0, n_out, group_key)] = sums   # padding groups: zeros, dump row
+    return out[:n_out]
+
+
 def optimize(graph: PoseGraph, fixed_mask, iters: int = 20, cauchy_c: float = 1.0,
              lam0: float = 1e-4):
     """LM on the pose graph; fixed_mask (K,) holds nodes constant.  Returns
@@ -87,6 +132,7 @@ def optimize(graph: PoseGraph, fixed_mask, iters: int = 20, cauchy_c: float = 1.
     ii, jj = graph.edge_i.long(), graph.edge_j.long()
     Tij = SE3(graph.edge_q, graph.edge_t)
     fix = torch.repeat_interleave(fixed_mask | ~graph.node_valid, 6)
+    h_plan, b_plan = _assembly_plan(ii, jj, K)
 
     def total_cost(nodes: SE3):
         Ti, Tj = _index(nodes, ii), _index(nodes, jj)
@@ -102,14 +148,13 @@ def optimize(graph: PoseGraph, fixed_mask, iters: int = 20, cauchy_c: float = 1.
         w = _cauchy_weight(r2, cauchy_c) * graph.edge_weight
         w = torch.where(graph.edge_valid, w, 0.0)
         JiW, JjW = Ji * w[:, None, None], Jj * w[:, None, None]
-        H = torch.zeros((K, K, 6, 6), dtype=dt, device=dev)
-        H.index_put_((ii, ii), torch.einsum("eki,ekj->eij", JiW, Ji), accumulate=True)
-        H.index_put_((jj, jj), torch.einsum("eki,ekj->eij", JjW, Jj), accumulate=True)
-        H.index_put_((ii, jj), torch.einsum("eki,ekj->eij", JiW, Jj), accumulate=True)
-        H.index_put_((jj, ii), torch.einsum("eki,ekj->eij", JjW, Ji), accumulate=True)
-        b = torch.zeros((K, 6), dtype=dt, device=dev)
-        b.index_add_(0, ii, -torch.einsum("eki,ek->ei", JiW, r))
-        b.index_add_(0, jj, -torch.einsum("eki,ek->ei", JjW, r))
+        blocks = torch.cat([torch.einsum("eki,ekj->eij", JiW, Ji),
+                            torch.einsum("eki,ekj->eij", JjW, Jj),
+                            torch.einsum("eki,ekj->eij", JiW, Jj),
+                            torch.einsum("eki,ekj->eij", JjW, Ji)])
+        H = _plan_sum(h_plan, blocks, K * K).reshape(K, K, 6, 6)
+        b = _plan_sum(b_plan, torch.cat([-torch.einsum("eki,ek->ei", JiW, r),
+                                         -torch.einsum("eki,ek->ei", JjW, r)]), K)
         Hd = H.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
         Hd = torch.where(fix[:, None] | fix[None, :], 0.0, Hd)
         return Hd, torch.diagonal(Hd), torch.where(fix, 0.0, b.reshape(-1))

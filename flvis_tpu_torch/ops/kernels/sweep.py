@@ -14,13 +14,17 @@ Wh − 8 are embedded with a 4-column invalid band (disparity and cost 0,
 not ok) on each side.
 
 On the H100 the kernel (csrc/sweep.cu) is bound by operations, not bytes:
-0.7 MB of half-res images in and 1 MB of maps out, against ~64 × 33
-flops per pixel.  The second-best cost needs the final best, so the design
-keeps each pixel's 64 box costs in shared memory (never the volume in
-device memory): a block stages its 32×8 output tile's rows and the
-columns every disparity reaches, loops over d computing the box cost of
-each pixel with the same factored add order as the plain version (so the
-costs agree bit for bit), and then reduces the 64 costs per pixel.
+0.7 MB of half-res images in and 1 MB of maps out, against ~40 flops per
+pixel and disparity; on the SM the shared-memory traffic that feeds them
+sets the pace.  The design holds no cost volume: a block of 128 threads
+takes a 32×8 output tile and runs the disparities in chunks of 8, one
+barrier a chunk.  The horizontal pass keeps each thread's L values in
+registers and slides R by one column per disparity; the vertical pass
+forms each vertical 3-tap sum once for two output rows; both add in this
+module's order, so the costs are bit-equal.  The reduction over d runs
+online in registers (first strict minimum, the costs beside it, a ring of
+prefix minima for the best cost more than 2 disparities below, a running
+minimum above), so the maps equal the plain version's bit for bit.
 """
 
 from __future__ import annotations

@@ -145,9 +145,10 @@ def test_fastblur_kernel_matches_plain(dev, shape):
     assert float((b_k - b_p).abs().max()) <= FAST_TOL
 
 
-@pytest.mark.parametrize("shape", [(240, 376), (37, 50)])
+@pytest.mark.parametrize("shape", [(240, 376), (37, 50), (45, 131)])
 def test_sweep_kernel_matches_plain(dev, shape):
-    """Same costs in the same add order: the maps agree exactly."""
+    """Same costs in the same add order, the same minima: the maps agree
+    exactly."""
     from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig
     from flvis_tpu_torch.ops.kernels import sweep
 
@@ -165,8 +166,58 @@ def test_sweep_kernel_matches_plain(dev, shape):
     ref = sweep.sweep_maps_plain(L, R)
     torch.cuda.synchronize()
     assert torch.equal(got[2], ref[2]) and bool(got[2].any())
-    assert float((got[0] - ref[0]).abs().max()) <= 1e-3
-    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _sweep_pair(dev, h, w, shift, seed):
+    """A float texture (2×2 means of uniform noise: not quantised) as L and,
+    as R, the same texture `shift` columns further on plus noise, so that
+    L(x) ≈ R(x − shift)."""
+    rng = np.random.default_rng(seed)
+    tex = rng.uniform(0, 255, (h + 1, w + shift + 1))
+    tex = 0.25 * (tex[:-1, :-1] + tex[1:, :-1] + tex[:-1, 1:] + tex[1:, 1:])
+    f = dict(dtype=torch.float32, device=dev)
+    L = torch.as_tensor(tex[:, :w], **f).contiguous()
+    R = torch.as_tensor(tex[:, shift:shift + w] + rng.normal(0, 1.0, (h, w)), **f).contiguous()
+    return L, R
+
+
+@pytest.mark.parametrize("shape", [(240, 376), (37, 50), (45, 131)])
+def test_sweep_kernel_exact_on_float_images(dev, shape):
+    from flvis_tpu_torch.ops.kernels import sweep
+
+    h, w = shape
+    L, R = _sweep_pair(dev, h, w, 12, h * w)
+    before = sweep.sweep_maps_kernel.launches
+    got = sweep.sweep_maps(L, R)
+    ref = sweep.sweep_maps_plain(L, R)
+    torch.cuda.synchronize()
+    assert sweep.sweep_maps_kernel.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    inner = got[0][:, 4 + 12:w - 4]
+    assert bool(got[2].any()) and float((inner.round() == 12).float().mean()) > 0.9
+
+
+def test_sweep_kernel_flat_and_last_disparity(dev):
+    """A flat pair: every cost ties at 0, so best = 0 and nothing is ok.  A
+    pair 63 columns apart: best reaches D − 1 = 63 and is not ok there."""
+    from flvis_tpu_torch.ops.kernels import sweep
+
+    flat = torch.full((240, 376), 100.0, device=dev)
+    got = sweep.sweep_maps(flat, flat.clone())
+    ref = sweep.sweep_maps_plain(flat, flat.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert not bool(got[2].any()) and not bool(got[0].any()) and not bool(got[1].any())
+    L, R = _sweep_pair(dev, 240, 376, 63, 7)
+    got = sweep.sweep_maps(L, R)
+    ref = sweep.sweep_maps_plain(L, R)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    # best = 63 has no cost after it (cp = 0): the fit clamps to 63.5.
+    far = got[0][:, 4 + 63:376 - 4]
+    assert float((far == 63.5).float().mean()) > 0.9
+    assert not bool(got[2][:, 4 + 63:376 - 4][far == 63.5].any())
 
 
 @pytest.mark.parametrize("na,nb", [(1000, 1000), (17, 5)])
@@ -507,3 +558,117 @@ def test_redesigned_wrappers_refuse_bad_input(dev):
     big, _, _ = _schur_args(dev, 17, 64, 1e-3)
     with pytest.raises(ValueError, match="window"):
         schur.schur_step_kernel(*big, 2.0)
+
+
+@pytest.mark.parametrize("pallas_schur", [True, False])
+def test_window_ba_wide_window_on_card(dev, pallas_schur):
+    """window_size=20 on the card takes the plain Schur step: it warns once
+    (silent with pallas_schur=False), launches no schur kernel, and equals
+    the CPU's optimize within the Schur step's bounds."""
+    import warnings
+
+    import chip_smoke
+    from flvis_tpu_torch.backend import window_ba
+    from flvis_tpu_torch.config import BackendConfig
+    from flvis_tpu_torch.ops.kernels import schur
+
+    _, scfg = chip_smoke.system_config()
+    bcfg = BackendConfig(window_size=20, pallas_schur=pallas_schur)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        cam = chip_smoke.make_camera(scfg, d)
+        st = chip_smoke.bench_window(bcfg, cam, d)
+        before = schur.schur_step_kernel.launches
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            out.append(window_ba.optimize(bcfg, cam, st).state)
+        warned = [w for w in rec if issubclass(w.category, RuntimeWarning)]
+        assert schur.schur_step_kernel.launches == before
+        assert len(warned) == (1 if d.type == "cuda" and pallas_schur else 0)
+        if warned:
+            assert "window_size=20" in str(warned[0].message)
+    g, c = out
+    assert float((g.kf_t.cpu() - c.kf_t).abs().max()) <= SCHUR_TOL["t"]
+    assert float((g.kf_q.cpu() - c.kf_q).abs().max()) <= SCHUR_TOL["q"]
+    live = c.lm_valid
+    assert torch.equal(g.lm_valid.cpu(), live)
+    assert float((g.lm_pw.cpu()[live] - c.lm_pw[live]).abs().max()) <= SCHUR_TOL["lm"]
+
+
+def test_pgo_repeats_bit_for_bit(dev):
+    """Dense PGO of a drifted 200-node chain with loop edges (one pair
+    repeated) gives the same bits twice: its assembly sums in a fixed
+    order, without float atomics."""
+    from flvis_tpu_torch.geometry import so3
+    from flvis_tpu_torch.loop import pose_graph
+
+    rng = np.random.default_rng(0)
+    K = 200
+    seq = [(i, i + s) for s in (1, 2, 3) for i in range(K - s)]
+    loops = [(int(a), int(a) + int(g)) for a, g in
+             zip(rng.integers(0, K - 60, 24), rng.integers(30, 60, 24))]
+    loops += [loops[0]] * 3
+    ii, jj = (np.asarray(v, np.int64) for v in zip(*(seq + loops)))
+    E = ii.shape[0]
+    gt = np.stack([0.05 * np.arange(K), np.zeros(K), np.zeros(K)], -1)
+    node_t = gt + np.stack([np.zeros(K), 0.004 * np.arange(K), np.zeros(K)], -1)
+    f = dict(dtype=torch.float32, device=dev)
+    g = pose_graph.PoseGraph(
+        node_q=so3.exp(torch.as_tensor(rng.normal(0, 0.01, (K, 3)), **f)),
+        node_t=torch.as_tensor(node_t, **f), node_valid=torch.ones(K, dtype=torch.bool, device=dev),
+        edge_i=torch.as_tensor(ii, device=dev), edge_j=torch.as_tensor(jj, device=dev),
+        edge_q=so3.exp(torch.as_tensor(rng.normal(0, 0.002, (E, 3)), **f)),
+        edge_t=torch.as_tensor(gt[jj] - gt[ii] + rng.normal(0, 0.003, (E, 3)), **f),
+        edge_valid=torch.ones(E, dtype=torch.bool, device=dev), edge_weight=torch.ones(E, **f))
+    fixed = torch.zeros(K, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    a, ca = pose_graph.optimize(g, fixed, iters=20)
+    b, cb = pose_graph.optimize(g, fixed, iters=20)
+    torch.cuda.synchronize()
+    assert torch.equal(a.node_q, b.node_q) and torch.equal(a.node_t, b.node_t)
+    assert torch.equal(ca, cb) and bool(torch.isfinite(a.node_t).all())
+    assert not torch.equal(a.node_t, g.node_t)
+
+
+def _loop_composition(dev):
+    """The loop run of tests/test_torch_loop.py (a 28-keyframe out-and-back
+    with 1 cm of drift per keyframe) through one LoopCloser on the card."""
+    from flvis_tpu_torch.config import LoopConfig
+    from flvis_tpu_torch.geometry import camera, so3
+    from flvis_tpu_torch.geometry.se3 import SE3
+    from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig
+    from flvis_tpu_torch.loop import loop_closing
+
+    scfg = SceneConfig()
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=11)
+    kw = dict(max_keyframes=64, num_orb_features=200, vocab_words=128, kf_start=12,
+              kf_dist=10, kf_max_dist=64, nkf_closest=2, min_pts=12, min_score=0.03,
+              ratio_ransac=0.3, seq_edge_successors=3)
+    cam = camera.make(scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline, width=scfg.width,
+                      height=scfg.height, device=dev)
+    lc = loop_closing.LoopCloser(LoopConfig(**kw), cam, device=dev)
+    n = 28
+    xs = list(np.linspace(0, 0.8, n // 2)) + list(np.linspace(0.8, 0.02, n - n // 2))
+    for k, x in enumerate(xs):
+        t = -np.asarray([x, 0.0, 0.0])
+        img_l, img_r, _ = scene.render(np.eye(3), t)
+        T = SE3(so3.from_matrix(torch.eye(3, device=dev)),
+                torch.as_tensor(t + [0.0, 0.01 * k, 0.0], dtype=torch.float32, device=dev))
+        idx = lc.add_keyframe(img_l, img_r, T, frame_id=k)
+        if lc.detect_loop(idx) is not None:
+            lc.optimize_graph()
+    torch.cuda.synchronize()
+    return lc
+
+
+def test_loop_composition_repeats_bit_for_bit(dev):
+    """Ingest, BoW, verification and PGO run twice in one process give the
+    same closures, T_map_odom and keyframe poses, bit for bit."""
+    a, b = _loop_composition(dev), _loop_composition(dev)
+    assert len(a.closures) >= 1
+    assert [(c.kf_i, c.kf_j, c.num_inliers) for c in a.closures] == \
+        [(c.kf_i, c.kf_j, c.num_inliers) for c in b.closures]
+    assert torch.equal(a.T_map_odom.q, b.T_map_odom.q)
+    assert torch.equal(a.T_map_odom.t, b.T_map_odom.t)
+    assert torch.equal(a.kf_q, b.kf_q) and torch.equal(a.kf_t, b.kf_t)
+    assert torch.equal(a.bow_db, b.bow_db)
