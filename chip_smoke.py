@@ -56,11 +56,16 @@ KERNEL_FNS = {"grad_blur": ("grad_blur_kernel",),
               "imu_chain": ("attitude_chain_kernel",), "fastblur": ("fastblur_kernel",),
               "sweep": ("sweep_kernel",), "hamming": ("hamming_kernel",),
               "bowassign": ("bowassign_kernel",), "gather": ("gather_kernel",)}
-# Card peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s and
-# float32 operations/s outside the tensor cores.  Integer XOR/popcount work is
-# counted at the float32 rate (the data sheet lists no int32 CUDA-core rate).
+# Card peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
+# float32 operations/s outside the tensor cores, and dense int8 tensor-core
+# operations/s.  Integer XOR/popcount work would not run at the float32 rate:
+# the CUDA programming guide's throughput table gives compute capability 9.0
+# 16 population counts per SM per clock, an eighth of its float32 rate
+# (check_hamming prints that pipe's floor beside its row).
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_I8 = 1979e12
+POPC_PER_SM_CLOCK = 16
 
 
 def fail(msg: str) -> None:
@@ -89,13 +94,11 @@ def cuda_ms(*fns, reps: int = 50, warmup: int = 10):
     return [statistics.median(t) for t in times]
 
 
-def profile_kernels(fn, name: str, reps: int = 20):
-    """torch.profiler over reps calls of fn() → (the median device ms of
-    each __global__ of KERNEL_FNS[name], each launched once a call; the
-    device kernels one call launches, of any name).  The tracer drops
-    kernel events now and then, some profiles whole: a profile in which
-    any __global__ of KERNEL_FNS[name] shows fewer than reps / 2 events is
-    taken again, up to 5 times."""
+def profile_events(fn, complete, reps: int = 20, label: str = "kernel"):
+    """torch.profiler over reps calls of fn() → {device kernel name: [us of
+    each event]}.  The tracer drops kernel events now and then, some
+    profiles whole: a profile for which complete(events) is false is taken
+    again, up to 5 times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -106,26 +109,34 @@ def profile_kernels(fn, name: str, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_fn = {k: [] for k in KERNEL_FNS[name]}
-        names = collections.Counter()
+        events = collections.defaultdict(list)
         for e in p.events():
             if e.device_type == DeviceType.CUDA:
-                names[e.name] += 1
-                for k, v in by_fn.items():
-                    if k in e.name:
-                        v.append(e.time_range.elapsed_us())
-        if all(len(v) >= reps // 2 for v in by_fn.values()):
-            break
-        print(f"{name}: kernel events {({k: len(v) for k, v in by_fn.items()})} in the profile "
+                events[e.name].append(e.time_range.elapsed_us())
+        if complete(events):
+            return events
+        print(f"{label}: kernel events {({k: len(v) for k, v in events.items()})} in the profile "
               f"of {reps} calls (attempt {attempt + 1} of 5)")
-    else:
-        fail(f"{name}: no profile of {reps} calls held all its kernels' events")
-    split = {k: statistics.median(v) / 1000.0 for k, v in by_fn.items()}
+    fail(f"{label}: no profile of {reps} calls held all its kernels' events")
+
+
+def profile_kernels(fn, name: str, reps: int = 20):
+    """torch.profiler over reps calls of fn() → (the median device ms of
+    each __global__ of KERNEL_FNS[name], each launched once a call; the
+    device kernels one call launches, of any name).  A profile in which any
+    __global__ of KERNEL_FNS[name] shows fewer than reps / 2 events is taken
+    again (profile_events)."""
+    def per_fn(events):
+        return {k: [t for n, v in events.items() if k in n for t in v] for k in KERNEL_FNS[name]}
+
+    events = profile_events(fn, lambda ev: all(len(v) >= reps // 2 for v in per_fn(ev).values()),
+                            reps, name)
+    split = {k: statistics.median(v) / 1000.0 for k, v in per_fn(events).items()}
     if len(split) > 1:
         print(f"{name} device ms per call by __global__: "
               + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     # A lost event can only lower the count, a kernel seen at all raises it.
-    per_call = max(len(names), -(-sum(names.values()) // reps))
+    per_call = max(len(events), -(-sum(len(v) for v in events.values()) // reps))
     return split, per_call
 
 
@@ -135,10 +146,10 @@ def device_ms(fn, name: str) -> float:
     return sum(profile_kernels(fn, name)[0].values())
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak: float = PEAK_F32):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
-    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    operations over their peak rate (float32 unless given)."""
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -213,10 +224,11 @@ def schur_inputs(cam, st, lam: float = 1e-3):
             torch.tensor(lam, dtype=f, device=fid.device))
 
 
-def entry(name, source, replaces, err, dev_ms, event_ms, plain_ms, library_ms, nbytes, ops):
+def entry(name, source, replaces, err, dev_ms, event_ms, plain_ms, library_ms, nbytes, ops,
+          peak: float = PEAK_F32):
     """A row of the kernel table: `ms` is the kernel's device time
     (torch.profiler), `event_ms` its wrapper's time between CUDA events."""
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, ops, peak)
     print(f"  {name}: device {dev_ms:.4f} ms, CUDA events {event_ms:.4f} ms, bound "
           f"{b_ms:.6f} ms ({b_by})")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -224,7 +236,53 @@ def entry(name, source, replaces, err, dev_ms, event_ms, plain_ms, library_ms, n
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
+PYR_SHAPES = ((480, 752), (240, 376), (120, 188))   # the 3 levels at 480x752
+# The pyramid's own bytes per pixel by level: 4 in, gx and gy out, and the
+# quarter-size next image (1 B/px) on every level but the last.
+PYR_BYTES_PER_PX = (13.0, 13.0, 12.0)
+
+
+def profile_by_name(fn, reps: int = 20):
+    """{device kernel name: (mean ms per launch, launches per call)} over
+    reps calls of fn(), every device kernel of the calls, of any name; a
+    profile in which a kernel's events are not a whole multiple of reps
+    (the tracer lost some) is taken again, so the launches are exact.  The
+    mean, not the median: one name may cover launches of different sizes
+    in a call (a pyramid's levels), and mean x launches is their sum."""
+    events = profile_events(fn, lambda ev: ev and all(len(v) % reps == 0 for v in ev.values()),
+                            reps, "profile")
+    return {k: (statistics.fmean(v) / 1000.0, len(v) // reps) for k, v in events.items()}
+
+
+def pyramid_readings(device):
+    """Device time of one frame's pyramid, build_grad_pyramid at (3, 480,
+    752) over 3 levels, every kernel it launches counted; and each level's
+    grad_blur in its full mode.  Uses only what every version of the port
+    has, so it reads a parent tree the same way.  Returns (pyramid ms per
+    frame, {kernel name: (ms, launches per frame)})."""
+    from flvis_tpu_torch.ops import image as imops
+    from flvis_tpu_torch.ops.kernels import gradpyr
+
+    rng = np.random.default_rng(0)
+    for (h, w) in PYR_SHAPES:
+        x = torch.as_tensor(rng.uniform(0, 255, (3, h, w)), dtype=torch.float32, device=device)
+        print(f"grad_blur full mode (3,{h},{w}): device "
+              f"{device_ms(lambda: gradpyr.grad_blur_kernel(x), 'grad_blur'):.4f} ms")
+    x0 = torch.as_tensor(rng.uniform(0, 255, (3,) + PYR_SHAPES[0]), dtype=torch.float32,
+                         device=device)
+    kern = profile_by_name(lambda: imops.build_grad_pyramid(x0, len(PYR_SHAPES)))
+    total = sum(ms * n for ms, n in kern.values())
+    print(f"pyramid per frame (3,{PYR_SHAPES[0][0]},{PYR_SHAPES[0][1]}), "
+          f"{len(PYR_SHAPES)} levels: device {total:.4f} ms in "
+          f"{sum(n for _, n in kern.values())} launches: "
+          + "; ".join(f"{k[:60]} {ms:.4f} ms x{n}" for k, (ms, n) in kern.items()))
+    return total, kern
+
+
 def check_grad_blur(device):
+    """Each pyramid level in all three modes against the plain version; the
+    row times each level in the mode build_grad_pyramid gives it (next,
+    next, none) and bounds it by the pyramid's own bytes."""
     import torch.nn.functional as F
 
     from flvis_tpu_torch.ops import image as imops
@@ -240,30 +298,47 @@ def check_grad_blur(device):
     ky[1:4, 1:4] = np.outer(imops._DIFF, imops._SCHARR_SMOOTH)
     wts = torch.as_tensor(np.stack([kx, ky, k5])[:, None], dtype=torch.float32, device=device)
     err_max, dev, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
-    for (h, w) in [(480, 752), (240, 376), (120, 188)]:
+    for lvl, (h, w) in enumerate(PYR_SHAPES):
+        mode = "next" if lvl + 1 < len(PYR_SHAPES) else "none"
         x = torch.as_tensor(rng.uniform(0, 255, (3, h, w)), dtype=torch.float32,
                             device=device)
-        got = gradpyr.grad_blur_kernel(x)
-        ref = gradpyr.grad_blur_plain(x)
-        torch.cuda.synchronize()
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        errs = {}
+        for m in gradpyr.MODES:
+            got = gradpyr.grad_blur_kernel(x, m)
+            ref = gradpyr.grad_blur_plain(x, m)
+            torch.cuda.synchronize()
+            if (got[2] is None) != (ref[2] is None) or any(
+                    a.shape != b.shape for a, b in zip(got, ref) if b is not None):
+                fail(f"grad_blur {m} mode returns other shapes than its plain version")
+            errs[m] = max(float((a - b).abs().max()) for a, b in zip(got, ref) if b is not None)
+        err = max(errs.values())
         xp = imops.edge_pad(x, 2)[:, None].contiguous()
+        full = gradpyr.grad_blur_plain(x)
         lib = F.conv2d(xp, wts)
-        lib_err = max(float((lib[:, i] - ref[i]).abs().max()) for i in range(3))
-        k_ms, p_ms, l_ms = cuda_ms(lambda: gradpyr.grad_blur_kernel(x),
-                                   lambda: gradpyr.grad_blur_plain(x),
+        lib_err = max(float((lib[:, i] - full[i]).abs().max()) for i in range(3))
+        k_ms, p_ms, l_ms = cuda_ms(lambda: gradpyr.grad_blur_kernel(x, mode),
+                                   lambda: gradpyr.grad_blur_plain(x, mode),
                                    lambda: F.conv2d(xp, wts))
-        dev += device_ms(lambda: gradpyr.grad_blur_kernel(x), "grad_blur")
-        print(f"grad_blur (3,{h},{w}): max_abs_err {err:.3e} (tol {GRAD_TOL}), "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, conv2d {l_ms:.4f} ms "
+        d_ms = device_ms(lambda: gradpyr.grad_blur_kernel(x, mode), "grad_blur")
+        lvl_bytes = PYR_BYTES_PER_PX[lvl] * x.numel()
+        print(f"grad_blur level {lvl} (3,{h},{w}) {mode} mode: max_abs_err "
+              + ", ".join(f"{m} {e:.3e}" for m, e in errs.items())
+              + f" (tol {GRAD_TOL}); device {d_ms:.4f} ms (bound {bound(lvl_bytes, 0.0)[0]:.5f}"
+              f" ms), kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, conv2d {l_ms:.4f} ms "
               f"(its error {lib_err:.1e})")
         if not err <= GRAD_TOL:
-            fail(f"grad_blur kernel disagrees with its plain version at ({h},{w}): {err}")
+            fail(f"grad_blur kernel disagrees with its plain version at ({h},{w}): {errs}")
         err_max = max(err_max, err)
-        ms, plain_ms, lib_ms = ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
-        nbytes += 16.0 * x.numel()            # one float in, three out
-        ops += 68.0 * x.numel()               # gx 8, gy 11, 5x5 blur 49 flops
-    print(f"grad_blur per frame (3 levels): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        dev, ms, plain_ms, lib_ms = dev + d_ms, ms + k_ms, plain_ms + p_ms, lib_ms + l_ms
+        nbytes += lvl_bytes
+        # gx 8 and gy 11 flops a pixel; the 5x5 blur's 49 at the even pixels.
+        ops += (19.0 + (49.0 / 4 if mode == "next" else 0.0)) * x.numel()
+    total, kern = pyramid_readings(device)
+    if sum(n for _, n in kern.values()) != len(PYR_SHAPES) or not all(
+            "grad_blur_kernel" in k for k in kern):
+        fail(f"the pyramid launches other kernels than one grad_blur per level: {kern}")
+    print(f"grad_blur per frame (3 levels): device {dev:.4f} ms (pyramid {total:.4f} ms), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return entry("grad_blur", "flvis_tpu_torch/csrc/gradpyr.cu",
                  "flvis_tpu/ops/pallas/gradpyr.py:82", err_max, dev, ms, plain_ms, lib_ms,
                  nbytes, ops)
@@ -426,11 +501,21 @@ def check_hamming(desc_a, desc_b):
           f"plain {p_ms:.4f} ms, ±1 matmul {l_ms:.4f} ms (its error {lib_err})")
     if err != 0:
         fail(f"hamming_matrix kernel disagrees with its plain version: {err}")
-    return entry("hamming", "flvis_tpu_torch/csrc/hamming.cu",
-                 "flvis_tpu/ops/pallas/hamming.py:56", err,
-                 device_ms(lambda: hamming.hamming_matrix_kernel(desc_a, desc_b), "hamming"),
-                 k_ms, p_ms, l_ms,
-                 32.0 * (na + nb) + 4.0 * na * nb, 24.0 * na * nb)
+    row = entry("hamming", "flvis_tpu_torch/csrc/hamming.cu",
+                "flvis_tpu/ops/pallas/hamming.py:56", err,
+                device_ms(lambda: hamming.hamming_matrix_kernel(desc_a, desc_b), "hamming"),
+                k_ms, p_ms, l_ms,
+                32.0 * (na + nb) + 4.0 * na * nb, 24.0 * na * nb)
+    # A diagnostic, not the row's bound: the XOR + popcount form's floor on
+    # the popcount pipe, 8 popcounts per pair, at the SM clock nvidia-smi reads.
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(desc_a.device).multi_processor_count
+    floor = 8.0 * na * nb / (sms * POPC_PER_SM_CLOCK * mhz * 1e6) * 1e3
+    print(f"  hamming: popcount pipe floor {floor:.6f} ms (8 x {na} x {nb} popcounts, {sms} SMs "
+          f"x {POPC_PER_SM_CLOCK} a clock at {mhz:.0f} MHz, clocks.max.sm)")
+    return row
 
 
 def check_bowassign(descs, valids, cfg):
@@ -445,9 +530,9 @@ def check_bowassign(descs, valids, cfg):
     vocab = bow.train(desc[valid], torch.ones(int(valid.sum()), dtype=torch.bool,
                                               device=desc.device),
                       num_words=cfg.loop.vocab_words, iters=6)
-    words = vocab.words_packed
+    words, words_i8 = vocab.words_packed, vocab.words_i8
     V = words.shape[0]
-    got = bowassign.bow_tf_kernel(desc, valid, words)
+    got = bowassign.bow_tf_kernel(desc, valid, words, words_i8=words_i8)
     ref = bowassign.bow_tf_plain(desc, valid, words, vocab.words_pm1)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
@@ -460,7 +545,7 @@ def check_bowassign(descs, valids, cfg):
         accumulate=True)
     lib_err = int((lib_tf - ref).abs().max())
     k_ms, p_ms, l_ms = cuda_ms(
-        lambda: bowassign.bow_tf_kernel(desc, valid, words),
+        lambda: bowassign.bow_tf_kernel(desc, valid, words, words_i8=words_i8),
         lambda: bowassign.bow_tf_plain(desc, valid, words, vocab.words_pm1),
         lambda: torch.argmax(d_pm1 @ vocab.words_pm1.T, dim=1))
     print(f"bow_tf (B={B}, N={N}, V={V}, {int(valid.sum())} valid): max_abs_err {err} (exact), "
@@ -468,14 +553,36 @@ def check_bowassign(descs, valids, cfg):
           f"(its tf error {lib_err})")
     if err != 0:
         fail(f"bow_tf kernel disagrees with its plain version: {err}")
-    # Operations: an XOR and a popcount per word pair and descriptor, plus the
-    # running-minimum compare; bytes: descriptors, validity, words in, tf out.
-    ops = float(B * N) * V * (8 * 2 + 1)
-    nbytes = 33.0 * B * N + 32.0 * V + 4.0 * B * V
+    # Beyond the default width: LoopConfig(vocab_words=8192), random words
+    # with duplicates (ties) and descriptors on them, some invalid.
+    rng = np.random.default_rng(8192)
+    w8 = rng.integers(0, 2 ** 32, (8192, 8), dtype=np.uint32)
+    w8[5000:5020] = w8[3:23]
+    d8 = rng.integers(0, 2 ** 32, (2, 50, 8), dtype=np.uint32)
+    d8[:, :10] = w8[None, 3:13]
+    d8 = torch.as_tensor(d8.view(np.int32), device=desc.device)
+    v8 = torch.as_tensor(rng.uniform(size=(2, 50)) > 0.1, device=desc.device)
+    w8 = torch.as_tensor(w8.view(np.int32), device=desc.device)
+    e8 = int((bowassign.bow_tf_kernel(d8, v8, w8) - bowassign.bow_tf_plain(d8, v8, w8)).abs().max())
+    print(f"bow_tf (B=2, N=50, V=8192, ties): max_abs_err {e8} (exact)")
+    if e8 != 0:
+        fail(f"bow_tf kernel disagrees with its plain version at V=8192: {e8}")
+    # One block's worth of descriptors (64) alone, on one SM with no other
+    # SM contending for L2: a diagnostic beside the row's full-width time.
+    d1, v1 = desc[:1, :64].contiguous(), valid[:1, :64].contiguous()
+    one = device_ms(lambda: bowassign.bow_tf_kernel(d1, v1, words, words_i8=words_i8),
+                    "bowassign")
+    print(f"bow_tf (1, 64, {V}), one block: device {one:.4f} ms")
+    # Operations: the ±1 product on the int8 tensor cores, a multiply and an
+    # add per (descriptor, word, entry); bytes: descriptors, validity, the
+    # int8 words in, tf out.
+    ops = 2.0 * B * N * V * 256
+    nbytes = 33.0 * B * N + 256.0 * V + 4.0 * B * V
     return entry("bowassign", "flvis_tpu_torch/csrc/bowassign.cu",
                  "flvis_tpu/ops/pallas/bowassign.py:84", err,
-                 device_ms(lambda: bowassign.bow_tf_kernel(desc, valid, words), "bowassign"),
-                 k_ms, p_ms, l_ms, nbytes, ops)
+                 device_ms(lambda: bowassign.bow_tf_kernel(desc, valid, words, words_i8=words_i8),
+                           "bowassign"),
+                 k_ms, p_ms, l_ms, nbytes, ops, PEAK_I8)
 
 
 def covered_pixels(h, w, ccx, ccy, size, pad):
@@ -1018,9 +1125,12 @@ def main() -> int:
     _, info = _build.load_library()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {info['build_s']:.2f} s) "
           f"-> {info['path']}")
+    fn = ""
     for line in info["ptxas"].splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
         if "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+            print(f"  ptxas: {fn[:64]}: {line.strip()}")
 
     cfg, scfg = system_config()
     cam = make_camera(scfg, device)

@@ -33,12 +33,15 @@ from ..ops.orb import pack_pm1, unpack_pm1
 class Vocabulary:
     words_pm1: torch.Tensor    # (V, 256) ±1 float — centroid bits
     idf: torch.Tensor          # (V,) inverse document frequency weights
-    # (V, 8) int32: the words packed in ops/orb.unpack_pm1's bit order, for
-    # the bowassign kernel; computed from words_pm1.
+    # (V, 8) int32: the words packed in ops/orb.unpack_pm1's bit order, and
+    # (V, 256) int8: the words as ±1 bytes, the bowassign kernel's tensor-core
+    # operand; both computed once from words_pm1.
     words_packed: torch.Tensor = dataclasses.field(init=False, repr=False)
+    words_i8: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         object.__setattr__(self, "words_packed", pack_pm1(self.words_pm1).contiguous())
+        object.__setattr__(self, "words_i8", self.words_pm1.to(torch.int8).contiguous())
 
 
 def _assign(d, words_pm1):
@@ -89,7 +92,7 @@ def transform_rows(vocab: Vocabulary, descriptors_packed, valid):
     """B keyframes' descriptors (B, N, 8) with (B, N) valid → their
     L1-normalised tf-idf BoW rows (B, V)."""
     tf = bow_tf(descriptors_packed.contiguous(), valid.contiguous(), vocab.words_packed,
-                vocab.words_pm1).to(torch.float32)
+                vocab.words_pm1, vocab.words_i8).to(torch.float32)
     v = tf * vocab.idf
     return v / torch.clamp(torch.sum(torch.abs(v), dim=1, keepdim=True), min=1e-9)
 

@@ -10,7 +10,8 @@ results:
     image through an edge border, with the start corners clamped exactly as
     the CPU `dynamic_slice` path clamps them (image.py:274-282); the
     subpixel patches gather and blend in one launch (patches mode);
-  - the one-hot matmul decimation (image.py:78-92) → a strided slice;
+  - the one-hot matmul decimation (image.py:78-92) → a strided slice
+    (pyr_down), or, in build_grad_pyramid, grad_blur's "next" mode;
   - the 16×16 factorised equalize_hist (image.py:371-409) → torch.bincount
     and a table lookup (256 bins, the only size the reference supports).
 """
@@ -66,19 +67,20 @@ def pyr_down(img):
 def build_grad_pyramid(img, num_levels: int):
     """Pyramid with per-level Scharr gradients: tuple of (img, gx, gy).
 
-    Each level runs through ops/kernels/gradpyr.grad_blur (the CUDA kernel
-    on a CUDA tensor, the plain version on a CPU tensor): gx, gy and the
-    pyrDown low-pass from one read; the decimation is a strided slice."""
+    Each level is one call of ops/kernels/gradpyr.grad_blur (the CUDA kernel
+    on a CUDA tensor, the plain version on a CPU tensor): gx, gy and, in its
+    "next" mode, the pyrDown low-pass at the even pixels only — the next
+    level's image, decimated in the same launch; the last level takes its
+    "none" mode (no blur)."""
     from .kernels.gradpyr import grad_blur
 
     squeeze = img.dim() == 2
-    level = img[None] if squeeze else img
+    level = (img[None] if squeeze else img).contiguous()
     out = []
     for lvl in range(num_levels):
-        gx, gy, blur = grad_blur(level.contiguous())
+        gx, gy, nxt = grad_blur(level, "next" if lvl + 1 < num_levels else "none")
         out.append((level[0], gx[0], gy[0]) if squeeze else (level, gx, gy))
-        if lvl + 1 < num_levels:
-            level = blur[..., ::2, ::2].contiguous()
+        level = nxt
     return tuple(out)
 
 

@@ -37,7 +37,7 @@ _L = ctypes.c_int64
 # C entry points of csrc/*.cu: (name, argtypes).  Every entry returns the
 # cudaError_t of its launches (0 = success) as an int.
 _SIGNATURES = {
-    "flvis_grad_blur": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "flvis_grad_blur": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flvis_schur_scratch_floats": [_I, _I],
     "flvis_schur_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P,
                          _P, _P, _P],

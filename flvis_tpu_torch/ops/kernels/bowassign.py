@@ -15,11 +15,14 @@ reference's argmax of the ±1 product is the argmin of the Hamming distance.
 
 The plain version is that ±1 product: unpack, (N, 256) × (256, V) matmul
 per keyframe, argmax, index_add_.  On the H100 the kernel
-(csrc/bowassign.cu) is bound by operations — B·N·V·8 XOR + POPC pairs —
-not bytes; it stages the packed vocabulary (128 KB at V=4096) once per
-block in shared memory, runs one warp per descriptor with a running
-(min, argmin) and a shuffle reduction, and counts with integer atomics.
-Integer and exact: kernel and plain version agree bit for bit.
+(csrc/bowassign.cu) computes the same product on the int8 tensor cores and
+is bound by their operations (2·B·N·V·256): a block unpacks 64
+descriptors into ±1 int8 rows held as mma fragments, streams the (V, 256)
+int8 words (the Vocabulary's words_i8, or unpacked here from the packed
+words) through shared memory in tiles of 128 with cp.async, and keeps a
+running first maximum per row, merged on (similarity, lower index) at the
+end; the counts are integer atomics.  No limit on V.  Integer and exact:
+kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -28,8 +31,6 @@ import torch
 
 from ..orb import unpack_pm1
 from . import _build
-
-MAX_WORDS = 232448 // 32      # the packed vocabulary must fit one block's shared memory
 
 
 def bow_tf_plain(desc, valid, words_packed, words_pm1=None):
@@ -48,35 +49,44 @@ def bow_tf_plain(desc, valid, words_packed, words_pm1=None):
     return tf
 
 
-def bow_tf_kernel(desc, valid, words_packed, words_pm1=None):
+def _require(name, t, dtype):
+    if not t.is_cuda:
+        raise ValueError(f"bow_tf: {name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"bow_tf: {name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"bow_tf: {name} must be contiguous")
+
+
+def bow_tf_kernel(desc, valid, words_packed, words_i8=None):
     """Launch csrc/bowassign.cu on (B, N, 8) int32 descriptors, (B, N) bool
-    valid and (V, 8) int32 words, all contiguous CUDA tensors."""
-    for name, t, dt in (("desc", desc, torch.int32), ("valid", valid, torch.bool),
-                        ("words_packed", words_packed, torch.int32)):
-        if not t.is_cuda:
-            raise ValueError(f"bow_tf: {name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != dt:
-            raise ValueError(f"bow_tf: {name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"bow_tf: {name} must be contiguous")
+    valid and the words, (V, 8) int32 packed and, when given, (V, 256) int8
+    ±1 (else unpacked from the packed words), all contiguous CUDA tensors."""
+    _require("desc", desc, torch.int32)
+    _require("valid", valid, torch.bool)
+    _require("words_packed", words_packed, torch.int32)
     if desc.dim() != 3 or desc.shape[2] != 8 or tuple(valid.shape) != tuple(desc.shape[:2]):
         raise ValueError(f"bow_tf: expected desc (B, N, 8) and valid (B, N), got "
                          f"{tuple(desc.shape)} and {tuple(valid.shape)}")
-    if words_packed.dim() != 2 or words_packed.shape[1] != 8:
-        raise ValueError(f"bow_tf: words_packed must be (V, 8), got {tuple(words_packed.shape)}")
+    if words_packed.dim() != 2 or words_packed.shape[1] != 8 or words_packed.shape[0] == 0:
+        raise ValueError(f"bow_tf: words_packed must be (V, 8), V > 0, got "
+                         f"{tuple(words_packed.shape)}")
     B, N = valid.shape
     V = words_packed.shape[0]
-    if not 0 < V <= MAX_WORDS:
-        raise ValueError(f"bow_tf: {V} words; the kernel stages at most {MAX_WORDS}")
-    if len({desc.device, valid.device, words_packed.device}) != 1:
+    if words_i8 is None:
+        words_i8 = unpack_pm1(words_packed).to(torch.int8)
+    _require("words_i8", words_i8, torch.int8)
+    if tuple(words_i8.shape) != (V, 256):
+        raise ValueError(f"bow_tf: words_i8 must be ({V}, 256), got {tuple(words_i8.shape)}")
+    if len({desc.device, valid.device, words_packed.device, words_i8.device}) != 1:
         raise ValueError("bow_tf: tensors on several devices")
     tf = torch.zeros((B, V), dtype=torch.int32, device=desc.device)
     if B * N == 0:
         return tf
     lib, _ = _build.load_library()
-    with torch.cuda.device(desc.device):
-        err = lib.flvis_bow_tf(desc.data_ptr(), valid.data_ptr(), words_packed.data_ptr(),
-                               tf.data_ptr(), B, N, V, _build.stream_of(desc))
+    err = _build.launch_on(desc.get_device(), lib.flvis_bow_tf, desc.data_ptr(),
+                           valid.data_ptr(), words_i8.data_ptr(), tf.data_ptr(), B, N, V,
+                           _build.stream_of(desc))
     _build.check_launch("bow_tf", err)
     bow_tf_kernel.launches += 1
     return tf
@@ -85,11 +95,12 @@ def bow_tf_kernel(desc, valid, words_packed, words_pm1=None):
 bow_tf_kernel.launches = 0
 
 
-def bow_tf(desc, valid, words_packed, words_pm1=None):
+def bow_tf(desc, valid, words_packed, words_pm1=None, words_i8=None):
     """CPU tensors take the plain version (using words_pm1 when given);
-    CUDA tensors launch the kernel (which raises on what it cannot take)."""
+    CUDA tensors launch the kernel (using words_i8 when given), which raises
+    on what it cannot take."""
     if desc.is_cuda:
-        return bow_tf_kernel(desc, valid, words_packed)
+        return bow_tf_kernel(desc, valid, words_packed, words_i8=words_i8)
     if desc.device.type == "cpu":
         return bow_tf_plain(desc, valid, words_packed, words_pm1)
     raise ValueError(f"bow_tf: unsupported device {desc.device}")

@@ -28,20 +28,45 @@ def dev():
     return torch.device("cuda", 0)
 
 
+@pytest.mark.parametrize("mode", ["full", "next", "none"])
 @pytest.mark.parametrize("shape", [(3, 480, 752), (3, 240, 376), (3, 120, 188),
                                    (2, 61, 87)])
-def test_grad_blur_kernel_matches_plain(dev, shape):
+def test_grad_blur_kernel_matches_plain(dev, shape, mode):
+    """Each mode against its plain version: the same shapes (the next level
+    is (B, ceil(H/2), ceil(W/2))), values within GRAD_TOL."""
     from flvis_tpu_torch.ops.kernels import gradpyr
 
     x = torch.as_tensor(np.random.default_rng(0).uniform(0, 255, shape),
                         dtype=torch.float32, device=dev)
     before = gradpyr.grad_blur_kernel.launches
-    got = gradpyr.grad_blur(x)
-    ref = gradpyr.grad_blur_plain(x)
+    got = gradpyr.grad_blur(x, mode)
+    ref = gradpyr.grad_blur_plain(x, mode)
     torch.cuda.synchronize()
     assert gradpyr.grad_blur_kernel.launches == before + 1
+    assert (got[2] is None) == (ref[2] is None) == (mode == "none")
     for a, b in zip(got, ref):
-        assert float((a - b).abs().max()) <= GRAD_TOL
+        if b is not None:
+            assert a.shape == b.shape and a.is_contiguous()
+            assert float((a - b).abs().max()) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("shape", [(3, 480, 752), (2, 61, 87), (97, 131)])
+def test_grad_pyramid_on_card_matches_plain(dev, shape):
+    """build_grad_pyramid on the card against the plain pyramid on the same
+    image, one grad_blur launch per level and nothing else between them."""
+    from flvis_tpu_torch.ops import image as imops
+    from flvis_tpu_torch.ops.kernels import gradpyr
+
+    x = np.random.default_rng(2).uniform(0, 255, shape).astype(np.float32)
+    before = gradpyr.grad_blur_kernel.launches
+    got = imops.build_grad_pyramid(torch.as_tensor(x, device=dev), 3)
+    torch.cuda.synchronize()
+    assert gradpyr.grad_blur_kernel.launches == before + 3
+    ref = imops.build_grad_pyramid(torch.as_tensor(x), 3)
+    for gl, rl in zip(got, ref):
+        for a, b in zip(gl, rl):
+            assert tuple(a.shape) == tuple(b.shape)
+            assert float((a.cpu() - b).abs().max()) <= GRAD_TOL
 
 
 def test_schur_kernel_matches_plain_and_repeats(dev):
@@ -75,6 +100,8 @@ def test_kernel_wrappers_refuse_bad_input(dev):
         gradpyr.grad_blur(torch.zeros((1, 8, 16), device=dev)[..., ::2])
     with pytest.raises(ValueError, match="B, H, W"):
         gradpyr.grad_blur(torch.zeros((8, 8), device=dev))
+    with pytest.raises(ValueError, match="mode"):
+        gradpyr.grad_blur(torch.zeros((1, 8, 8), device=dev), "half")
     W, L = 17, 8
     args = [torch.zeros(s, device=dev) for s in
             ((W, 9), (W, 3), (3, L), (3 * W, L), (W, L), (W, L), (W,), (5,), ())]
@@ -327,10 +354,11 @@ def test_gather_kernel_exact(dev, shape, size, pad, n):
     assert got.shape == ref.shape and torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("b,n,v", [(8, 1000, 4096), (3, 37, 1000)])
+@pytest.mark.parametrize("b,n,v", [(8, 1000, 4096), (3, 37, 1000), (2, 50, 8192)])
 def test_bowassign_kernel_exact(dev, b, n, v):
     """Term frequencies equal the ±1-matmul plain version exactly, with
-    ties forced by duplicated words and some invalid descriptors; the
+    ties forced by duplicated words and some invalid descriptors, at any
+    vocabulary size (8192 words: LoopConfig(vocab_words=8192)); the
     normalised rows of transform_rows follow."""
     from flvis_tpu_torch.loop import bow
     from flvis_tpu_torch.ops import orb
@@ -352,6 +380,7 @@ def test_bowassign_kernel_exact(dev, b, n, v):
     assert torch.equal(got, ref) and int(got.sum()) == int(valid.sum())
     vocab = bow.Vocabulary(orb.unpack_pm1(words_t), torch.ones(v, device=dev))
     assert torch.equal(vocab.words_packed, words_t)
+    assert torch.equal(bowassign.bow_tf(desc_t, valid, words_t, words_i8=vocab.words_i8), ref)
     rows = bow.transform_rows(vocab, desc_t, valid)
     tf = ref.to(torch.float32)
     assert torch.equal(rows, tf / torch.clamp(tf.sum(1, keepdim=True), min=1e-9))
@@ -371,9 +400,9 @@ def test_slice_three_kernel_wrappers_refuse_bad_input(dev):
     w = torch.zeros((16, 8), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="bool"):
         bowassign.bow_tf(d, torch.ones((2, 5), dtype=torch.uint8, device=dev), w)
-    with pytest.raises(ValueError, match="at most"):
-        bowassign.bow_tf(d, torch.ones((2, 5), dtype=torch.bool, device=dev),
-                         torch.zeros((8000, 8), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match=r"words_i8 must be \(16, 256\)"):
+        bowassign.bow_tf(d, torch.ones((2, 5), dtype=torch.bool, device=dev), w,
+                         words_i8=torch.zeros((8, 256), dtype=torch.int8, device=dev))
 
 
 def _clamp_edge_corners(rng, n, dim, size, pad):

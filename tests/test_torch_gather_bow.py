@@ -124,3 +124,92 @@ def test_transform_rows_matches_reference_bow_rows():
     one = tbow.transform(vocab, torch.as_tensor(desc.view(np.int32))[5],
                          torch.as_tensor(kpv)[5])
     np.testing.assert_array_equal(one.numpy(), got.numpy()[3])
+
+
+def test_vocabulary_words_i8_and_save_load(tmp_path):
+    """words_i8 is the ±1 words as int8 in unpack_pm1's order (the bowassign
+    kernel's operand), equal to the wrapper's own unpacking, and a saved
+    vocabulary loads back with the same words_packed and words_i8."""
+    words, _, _ = _bow_inputs(8, 300, 4)
+    packed = torch.as_tensor(words.view(np.int32))
+    vocab = tbow.Vocabulary(torb.unpack_pm1(packed), torch.linspace(0.5, 2.0, 300))
+    assert vocab.words_i8.dtype == torch.int8 and vocab.words_i8.is_contiguous()
+    assert torch.equal(vocab.words_i8, torb.unpack_pm1(packed).to(torch.int8))
+    path = str(tmp_path / "vocab.npz")
+    tbow.save(path, vocab)
+    back = tbow.load(path, device="cpu")
+    for name in ("words_pm1", "idf", "words_packed", "words_i8"):
+        assert torch.equal(getattr(back, name), getattr(vocab, name))
+
+
+def _epilogue_argmax(sim):
+    """A numpy model of csrc/bowassign.cu's epilogue over one block's rows:
+    V tiles of 128 words; in each, warp wn (of 4 along the words) and lane
+    tig (of 4 sharing a row) see words wn·32 + ni·8 + tig·2 + j (ni < 4,
+    j < 2) in that order and keep the first maximum by strict >; then lanes
+    merge by xor-shuffles 1 and 2 and the warps in order 0..3, each merge
+    taking (higher similarity, then lower word index)."""
+    rows, V = sim.shape
+    best = np.full((rows, 4, 4), np.iinfo(np.int32).min, np.int64)
+    arg = np.full((rows, 4, 4), np.iinfo(np.int32).max, np.int64)
+    for t in range(-(-V // 128)):
+        for wn in range(4):
+            for tig in range(4):
+                for ni in range(4):
+                    for j in range(2):
+                        col = t * 128 + wn * 32 + ni * 8 + tig * 2 + j
+                        if col < V:
+                            upd = sim[:, col] > best[:, wn, tig]
+                            best[upd, wn, tig] = sim[upd, col]
+                            arg[upd, wn, tig] = col
+
+    def better(s, a, bs, ba):
+        return (s > bs) | ((s == bs) & (a < ba))
+
+    for off in (1, 2):
+        perm = [t ^ off for t in range(4)]
+        ob, oa = best[:, :, perm], arg[:, :, perm]
+        u = better(ob, oa, best, arg)
+        best, arg = np.where(u, ob, best), np.where(u, oa, arg)
+    bs, ba = best[:, 0, 0], arg[:, 0, 0]
+    for wn in range(1, 4):
+        u = better(best[:, wn, 0], arg[:, wn, 0], bs, ba)
+        bs, ba = np.where(u, best[:, wn, 0], bs), np.where(u, arg[:, wn, 0], ba)
+    return ba
+
+
+@pytest.mark.parametrize("v", [1000, 300, 128, 8192])
+def test_bowassign_epilogue_order_gives_first_argmax(v):
+    """The kernel's merge order picks torch.argmax's first index among
+    ties: on ±1 products with duplicated words (so tied maxima) and on
+    small-integer similarities with many ties, V a multiple of the 128-word
+    tile and not."""
+    rng = np.random.default_rng(v)
+    words, desc, _ = _bow_inputs(64, v, v)
+    words[v - 8:] = words[:8]                                 # ties across tiles
+    sim = (torb.unpack_pm1(torch.as_tensor(desc.view(np.int32)))
+           @ torb.unpack_pm1(torch.as_tensor(words.view(np.int32))).T).to(torch.int64)
+    small = torch.as_tensor(rng.integers(-2, 3, (64, v)))
+    for s in (sim, small):
+        want = torch.argmax(s, dim=1).numpy()
+        np.testing.assert_array_equal(_epilogue_argmax(s.numpy()), want)
+        assert (s.numpy()[np.arange(64), want] == s.numpy().max(1)).all()
+
+
+def test_transform_rows_matches_reference_transform_at_8192_words():
+    """LoopConfig(vocab_words=8192): the JAX package's transform takes any
+    V, and so does the port (no limit from the kernel on the card)."""
+    from flvis_tpu.loop import bow as jbow
+
+    V, N = 8192, 40
+    words, desc, valid = _bow_inputs(N, V, 6)
+    words_pm1 = torb.unpack_pm1(torch.as_tensor(words.view(np.int32)))
+    idf = np.random.default_rng(6).uniform(0.1, 3.0, V).astype(np.float32)
+    ref = jbow.transform(jbow.Vocabulary(jnp.asarray(words_pm1.numpy()), jnp.asarray(idf)),
+                         jnp.asarray(desc), jnp.asarray(valid))
+    vocab = tbow.Vocabulary(words_pm1, torch.as_tensor(idf))
+    got = tbow.transform(vocab, torch.as_tensor(desc.view(np.int32)), torch.as_tensor(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+    tf = bowassign.bow_tf_plain(torch.as_tensor(desc.view(np.int32))[None],
+                                torch.as_tensor(valid)[None], vocab.words_packed)
+    assert int(tf.sum()) == int(valid.sum()) and tuple(tf.shape) == (1, V)

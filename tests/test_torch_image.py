@@ -69,6 +69,41 @@ def test_build_grad_pyramid(shape):
             _close(a, b, 1e-3)
 
 
+@pytest.mark.parametrize("shape", [(3, 96, 160), (2, 61, 87)])
+def test_grad_blur_plain_modes_are_slices_of_full(shape):
+    """The "next" mode's image is the full blur at the even pixels and
+    "none" drops it; gx and gy are the full mode's, all bit for bit."""
+    x = torch.as_tensor(_img(shape, seed=12))
+    gx, gy, blur = gradpyr.grad_blur_plain(x)
+    ngx, ngy, nxt = gradpyr.grad_blur_plain(x, "next")
+    zgx, zgy, none = gradpyr.grad_blur_plain(x, "none")
+    h, w = shape[-2:]
+    assert tuple(nxt.shape) == (shape[0], (h + 1) // 2, (w + 1) // 2) and nxt.is_contiguous()
+    assert torch.equal(nxt, blur[..., ::2, ::2]) and none is None
+    for a in (ngx, zgx):
+        assert torch.equal(a, gx)
+    for a in (ngy, zgy):
+        assert torch.equal(a, gy)
+    with pytest.raises(ValueError, match="mode"):
+        gradpyr.grad_blur(x, "half")
+
+
+@pytest.mark.parametrize("shape", [(3, 96, 160), (96, 160), (2, 61, 87)])
+def test_build_grad_pyramid_is_full_mode_composition(shape):
+    """One grad_blur per level in its next / none modes gives the levels of
+    the full-mode composition (blur, then a strided slice) bit for bit."""
+    x = torch.as_tensor(_img(shape, seed=13))
+    got = timg.build_grad_pyramid(x, 3)
+    level = x[None] if x.dim() == 2 else x
+    for lvl, g in enumerate(got):
+        gx, gy, blur = gradpyr.grad_blur_plain(level.contiguous())
+        want = (level, gx, gy) if x.dim() == 3 else (level[0], gx[0], gy[0])
+        for a, b in zip(g, want):
+            assert torch.equal(a, b)
+        level = blur[..., ::2, ::2]
+    assert len(got) == 3
+
+
 def test_filters_and_bilinear():
     x = _img((70, 90), seed=7)
     jx, tx = jnp.asarray(x), torch.as_tensor(x)
