@@ -43,6 +43,7 @@ import torch
 GRAD_TOL = 1e-3                       # FMA contraction on [0, 255] inputs
 SCHUR_TOL = {"t": 2e-4, "q": 2e-5, "lm": 2e-3}   # tests/test_window_ba.py:201-207
 IMU_TOL = 1e-6                        # small-angle series vs exact exp, imu_chain.py:17-21
+IMU_SUM_TOL = 1e-5                    # the fused feed's pos, vel: FMA vs cumsum, float32
 FAST_TOL = 1e-3                       # sum-order rounding of FAST scores and the blur
 N_FRAMES = 64
 WARM_FRAMES = 16
@@ -53,7 +54,8 @@ MS_SEQS, MS_CHUNK, MS_CHUNKS = 8, 8, 8    # phase c: 8 sequences × 8 chunks of 
 # The __global__ functions of each kernel's source, for its device time.
 KERNEL_FNS = {"grad_blur": ("grad_blur_kernel",),
               "schur_step": ("schur_reduce_solve", "schur_backsub"),
-              "imu_chain": ("attitude_chain_kernel",), "fastblur": ("fastblur_kernel",),
+              "imu_chain": ("attitude_chain_kernel", "imu_feed_kernel"),
+              "fastblur": ("fastblur_kernel",),
               "sweep": ("sweep_kernel",), "hamming": ("hamming_kernel",),
               "bowassign": ("bowassign_kernel",), "gather": ("gather_kernel",)}
 # Card peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
@@ -66,6 +68,15 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_I8 = 1979e12
 POPC_PER_SM_CLOCK = 16
+LANES_PER_SM_CLOCK = 128              # 4 schedulers, one warp instruction a clock each
+# csrc/fastblur.cu's tile: TY rows by TX columns, NT threads a block.
+FAST_TY, FAST_TX, FAST_NT = 11, 126, 128
+# The attitude chain's dependent path in cycles, one sample (csrc/imu_chain.cu
+# chain_step), counted from the source: 25 dependent float32 multiply/add
+# steps at 4 cycles each (q ⊗ G 4, ĝ 3, v 3, θ² 3, the series, its scaling
+# and the product 7, |q|² 4, the scaling 1) and one rsqrt on the
+# special-function unit (~16 cycles).
+CHAIN_DEP_CYCLES = 25 * 4 + 16
 
 
 def fail(msg: str) -> None:
@@ -120,14 +131,15 @@ def profile_events(fn, complete, reps: int = 20, label: str = "kernel"):
     fail(f"{label}: no profile of {reps} calls held all its kernels' events")
 
 
-def profile_kernels(fn, name: str, reps: int = 20):
+def profile_kernels(fn, name: str, reps: int = 20, fns=None):
     """torch.profiler over reps calls of fn() → (the median device ms of
-    each __global__ of KERNEL_FNS[name], each launched once a call; the
-    device kernels one call launches, of any name).  A profile in which any
-    __global__ of KERNEL_FNS[name] shows fewer than reps / 2 events is taken
-    again (profile_events)."""
+    each __global__ of KERNEL_FNS[name] (or of its subset fns), each
+    launched once a call; the device kernels one call launches, of any
+    name).  A profile in which any of them shows fewer than reps / 2 events
+    is taken again (profile_events)."""
     def per_fn(events):
-        return {k: [t for n, v in events.items() if k in n for t in v] for k in KERNEL_FNS[name]}
+        return {k: [t for n, v in events.items() if k in n for t in v]
+                for k in fns or KERNEL_FNS[name]}
 
     events = profile_events(fn, lambda ev: all(len(v) >= reps // 2 for v in per_fn(ev).values()),
                             reps, name)
@@ -140,10 +152,17 @@ def profile_kernels(fn, name: str, reps: int = 20):
     return split, per_call
 
 
-def device_ms(fn, name: str) -> float:
+def device_ms(fn, name: str, fns=None) -> float:
     """Device milliseconds per call of fn()'s own kernels, summed over the
-    __global__ functions of KERNEL_FNS[name] (profile_kernels)."""
-    return sum(profile_kernels(fn, name)[0].values())
+    __global__ functions of KERNEL_FNS[name] or fns (profile_kernels)."""
+    return sum(profile_kernels(fn, name, fns=fns)[0].values())
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock's maximum, MHz, as nvidia-smi reads it."""
+    return float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                 "--format=csv,noheader,nounits"], capture_output=True,
+                                text=True, check=True).stdout.split()[0])
 
 
 def bound(nbytes: float, ops: float, peak: float = PEAK_F32):
@@ -244,14 +263,15 @@ PYR_BYTES_PER_PX = (13.0, 13.0, 12.0)
 
 def profile_by_name(fn, reps: int = 20):
     """{device kernel name: (mean ms per launch, launches per call)} over
-    reps calls of fn(), every device kernel of the calls, of any name; a
-    profile in which a kernel's events are not a whole multiple of reps
-    (the tracer lost some) is taken again, so the launches are exact.  The
-    mean, not the median: one name may cover launches of different sizes
-    in a call (a pyramid's levels), and mean x launches is their sum."""
-    events = profile_events(fn, lambda ev: ev and all(len(v) % reps == 0 for v in ev.values()),
-                            reps, "profile")
-    return {k: (statistics.fmean(v) / 1000.0, len(v) // reps) for k, v in events.items()}
+    reps calls of fn(), every device kernel of the calls, of any name.  The
+    tracer can lose a profile's first event (a kernel launched outside
+    PyTorch, alone in its call, lost one of its 20 in every profile of one
+    run), so launches per call are rounded, exact while fewer than reps / 2
+    of a name's events are lost; a profile with no event is taken again.
+    The mean, not the median: one name may cover launches of different
+    sizes in a call (a pyramid's levels), and mean x launches is their sum."""
+    events = profile_events(fn, bool, reps, "profile")
+    return {k: (statistics.fmean(v) / 1000.0, round(len(v) / reps)) for k, v in events.items()}
 
 
 def pyramid_readings(device):
@@ -390,12 +410,75 @@ def check_schur(cfg, cam, device):
                  k_ms, p_ms, None, nbytes, ops)
 
 
+def imu_packets(device, P: int = 16, n: int = 32, seed: int = 5):
+    """VioConfig() and n runner-sized IMU packets (acc, gyro, t, valid) on
+    the card from a seed, 200 Hz, gravity plus noise and a turning motion:
+    the first initialises the filter; the second, one row masked, completes
+    initialisation mid-packet; then steady packets, some suffix-padded as
+    runner.pack_imu_frames pads them (11 valid, none valid); 32 × 16 samples
+    wrap the 400-slot ring."""
+    from flvis_tpu_torch.config import VioConfig
+
+    rng = np.random.default_rng(seed)
+    packets = []
+    for k in range(n):
+        t = 0.005 * (P * k + np.arange(1, P + 1))
+        acc = np.array([0.3, -0.2, 9.78]) + rng.normal(0.0, 0.05, (P, 3))
+        gyro = rng.normal(0.0, 0.002, (P, 3)) + [0.004, -0.003, 0.002]
+        if k >= 2:
+            acc += rng.normal([0.4, -0.2, -0.2], 0.3, (P, 3))
+            gyro += rng.normal(0.03, 0.15, (P, 3)) + [0.0, 0.0, 0.5]
+        valid = np.ones(P, bool)
+        if k == 1:
+            valid[3 % P] = False
+        elif k % 7 == 5:
+            valid[11:] = False
+        elif k == 20:
+            valid[:] = False
+        t[~valid], acc[~valid], gyro[~valid] = 0.0, 0.0, 0.0
+        packets.append(tuple(torch.as_tensor(x, dtype=dt, device=device) for x, dt in
+                             ((acc, torch.float32), (gyro, torch.float32), (t, torch.float32),
+                              (valid, torch.bool))))
+    return VioConfig(), packets
+
+
 def check_imu_chain(device):
+    """The fused feed (one launch a packet, the path's kernel) against
+    imu_feed_batch_plain over imu_packets, each packet from the same state
+    (the kernel's previous one), and the chain-only entry (the
+    TPU kernel's own function) against attitude_chain_plain; the row is the
+    fused kernel's, in steady mode, with init mode and the chain beside."""
     from flvis_tpu_torch.geometry import so3
     from flvis_tpu_torch.ops.kernels import imu_chain
+    from flvis_tpu_torch.vio import vimotion
+
+    cfg, packets = imu_packets(device)
+    P, C = packets[0][2].shape[0], cfg.imu_capacity
+    sk = init = vimotion.init_state(cfg, device=device)
+    errs = {"q": 0.0, "sums": 0.0, "exact": 0}
+    for pk in packets:
+        new = vimotion.imu_feed_batch(cfg, sk, *pk)
+        ref = vimotion.imu_feed_batch_plain(cfg, sk, *pk)
+        sk = new
+        for k in imu_chain.FEED_FIELDS:
+            a, b = getattr(new, k), getattr(ref, k)
+            if k == "q":
+                errs["q"] = max(errs["q"], float((a - b).abs().max()))
+            elif k in ("pos", "vel"):
+                errs["sums"] = max(errs["sums"], float((a - b).abs().max()))
+            elif not torch.equal(a, b):
+                errs["exact"] += 1
+    steady = packets[-1]
+    feed = (lambda: vimotion.imu_feed_batch(cfg, sk, *steady),
+            lambda: vimotion.imu_feed_batch_plain(cfg, sk, *steady))
+    print(f"imu_feed (P={P}, C={C}, {len(packets)} packets: init, mid-packet switch, steady, "
+          f"padded, ring wrap): q max_abs_err {errs['q']:.3e} (tol {IMU_TOL}), pos/vel "
+          f"{errs['sums']:.3e} (tol {IMU_SUM_TOL}), {errs['exact']} exact-field mismatches")
+    if not (errs["q"] <= IMU_TOL and errs["sums"] <= IMU_SUM_TOL and errs["exact"] == 0
+            and bool(sk.initialized)):
+        fail(f"imu_feed kernel disagrees with its plain version: {errs}")
 
     rng = np.random.default_rng(5)
-    P = 16                                   # the runner's packet size
     q0 = so3.normalize(torch.as_tensor(rng.normal(0, 1, 4), dtype=torch.float32,
                                        device=device))
     G = so3.exp(torch.as_tensor(rng.normal(0, 0.01, (P, 3)), dtype=torch.float32,
@@ -408,17 +491,64 @@ def check_imu_chain(device):
     ref = imu_chain.attitude_chain_plain(q0, G, a, c)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
-    k_ms, p_ms = cuda_ms(lambda: imu_chain.attitude_chain_kernel(q0, G, a, c),
-                         lambda: imu_chain.attitude_chain_plain(q0, G, a, c))
-    print(f"attitude_chain (P={P}): max_abs_err {err:.3e} (tol {IMU_TOL}), "
-          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     if not err <= IMU_TOL:
         fail(f"attitude_chain kernel disagrees with its plain version: {err}")
-    nbytes = 4.0 * (4 + P * (4 + 3 + 1) + P * 4)
-    return entry("imu_chain", "flvis_tpu_torch/csrc/imu_chain.cu",
-                 "flvis_tpu/ops/pallas/imu_chain.py:104", err,
-                 device_ms(lambda: imu_chain.attitude_chain_kernel(q0, G, a, c), "imu_chain"),
-                 k_ms, p_ms, None, nbytes, 90.0 * P)
+    k_ms, p_ms, ck_ms, cp_ms = cuda_ms(
+        *feed, lambda: imu_chain.attitude_chain_kernel(q0, G, a, c),
+        lambda: imu_chain.attitude_chain_plain(q0, G, a, c))
+    fused = ("imu_feed_kernel",)
+    dev_init = device_ms(lambda: vimotion.imu_feed_batch(cfg, init, *packets[0]), "imu_chain",
+                         fused)
+    dev_chain = device_ms(lambda: imu_chain.attitude_chain_kernel(q0, G, a, c), "imu_chain",
+                          ("attitude_chain_kernel",))
+    print(f"attitude_chain (P={P}): max_abs_err {err:.3e} (tol {IMU_TOL}), device "
+          f"{dev_chain:.4f} ms, kernel {ck_ms:.4f} ms, plain {cp_ms:.4f} ms; imu_feed "
+          f"init mode: device {dev_init:.4f} ms a packet")
+    # Where the fused kernel's steady time goes: packets of 1, P and 2P
+    # samples on the same state; the slope is a sample's share, the
+    # intercept what a launch costs whatever the packet.
+    by_p = {}
+    for p in (1, P, 2 * P):
+        pk = imu_packets(device, P=p, n=3)[1][-1]
+        by_p[p] = device_ms(lambda: vimotion.imu_feed_batch(cfg, sk, *pk), "imu_chain", fused)
+    slope = (by_p[2 * P] - by_p[1]) / (2 * P - 1)
+    print("imu_feed steady device ms by packet size: "
+          + ", ".join(f"P={p} {ms:.4f}" for p, ms in by_p.items())
+          + f"; {slope * 1e3:.4f} us a sample, {by_p[1] - slope:.4f} ms a launch")
+    # Bytes: the packet in (acc, gyro, t, valid), the ring (17 floats a slot)
+    # read and written, the scalars (biases, init sums, head, count, flag,
+    # init count) in and out.  Operations: ~200 a sample (the chain, the
+    # exps, the trust weight, the rotation, the sums).
+    nbytes = P * 29.0 + 2 * 68.0 * C + 2 * 61.0
+    row = entry("imu_chain", "flvis_tpu_torch/csrc/imu_chain.cu",
+                "flvis_tpu/ops/pallas/imu_chain.py:104", max(err, errs["q"]),
+                device_ms(feed[0], "imu_chain", fused), k_ms, p_ms, None, nbytes, 200.0 * P)
+    row.update(init_ms=dev_init, chain_ms=dev_chain, chain_event_ms=ck_ms, chain_plain_ms=cp_ms)
+    # A diagnostic beside the bound: the chain's serial latency, P dependent
+    # steps of CHAIN_DEP_CYCLES at the SM clock nvidia-smi reads.
+    mhz = sm_clock_mhz()
+    print(f"  imu_chain: serial-latency floor {P * CHAIN_DEP_CYCLES / mhz / 1e3:.6f} ms "
+          f"({P} x {CHAIN_DEP_CYCLES} dependent cycles at {mhz:.0f} MHz, clocks.max.sm)")
+    return row
+
+
+def sass_instructions(fn_name: str) -> int:
+    """Instructions of the __global__ fn_name in the built library's SASS
+    (cuobjdump -sass), NOPs not counted."""
+    import re
+    from pathlib import Path
+
+    from flvis_tpu_torch.ops.kernels import _build
+
+    _, info = _build.load_library()
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", info["path"]], capture_output=True, text=True,
+                          check=True).stdout
+    body = [b for b in sass.split("Function : ")[1:] if fn_name in b.split("\n", 1)[0]]
+    if len(body) != 1:
+        fail(f"cuobjdump: {len(body)} functions named like {fn_name}")
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body[0])
+    return sum(op != "NOP" for op in ops)
 
 
 def check_fastblur(img):
@@ -429,20 +559,86 @@ def check_fastblur(img):
     torch.cuda.synchronize()
     err = max(float((s_k - s_p).abs().max()), float((b_k - b_p).abs().max()))
     n_k, n_p = int((s_k > 0).sum()), int((s_p > 0).sum())
+    same = torch.equal(s_k > 0, s_p > 0)
     k_ms, p_ms = cuda_ms(lambda: fastblur.fast_score_nms_blur_kernel(img),
                          lambda: fastblur.fast_score_nms_blur_plain(img))
     print(f"fast_score_nms_blur {tuple(img.shape)}: max_abs_err {err:.3e} (tol {FAST_TOL}), "
-          f"corners {n_k} / {n_p}, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    if not err <= FAST_TOL or n_k != n_p:
+          f"corners {n_k} / {n_p}, {'the same' if same else 'DIFFERENT'} corner set, "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    if not err <= FAST_TOL or not same:
         fail(f"fast_score_nms_blur kernel disagrees with its plain version: {err}, "
              f"{n_k} vs {n_p} corners")
     # One image in, two maps out; ~150 flops per pixel (16 ring differences,
     # the arc tests, 3x3 max, the 14 blur taps).
-    return entry("fastblur", "flvis_tpu_torch/csrc/fastblur.cu",
-                 "flvis_tpu/ops/pallas/fastblur.py:138", err,
-                 device_ms(lambda: fastblur.fast_score_nms_blur_kernel(img), "fastblur"), k_ms,
-                 p_ms, None,
-                 12.0 * img.numel(), 150.0 * img.numel())
+    row = entry("fastblur", "flvis_tpu_torch/csrc/fastblur.cu",
+                "flvis_tpu/ops/pallas/fastblur.py:138", err,
+                device_ms(lambda: fastblur.fast_score_nms_blur_kernel(img), "fastblur"), k_ms,
+                p_ms, None,
+                12.0 * img.numel(), 150.0 * img.numel())
+    # A diagnostic beside the bound: the instruction-issue floor.  The kernel
+    # is straight-line code (every loop unrolled), so its static SASS count is
+    # what a thread issues, both sides of its few edge branches counted.
+    H, W = img.shape
+    n_sass = sass_instructions("fastblur_kernel")
+    threads = -(-H // FAST_TY) * -(-W // FAST_TX) * FAST_NT
+    mhz = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(img.device).multi_processor_count
+    floor = n_sass * threads / (sms * LANES_PER_SM_CLOCK * mhz * 1e6) * 1e3
+    print(f"  fastblur: issue floor {floor:.6f} ms ({n_sass} SASS instructions a thread, "
+          f"{n_sass * threads / img.numel():.0f} a pixel over {threads} threads; {sms} SMs x "
+          f"{LANES_PER_SM_CLOCK} lanes a clock at {mhz:.0f} MHz, clocks.max.sm)")
+    return row
+
+
+def feed_readings(device):
+    """imu_feed_batch on a CUDA VioState at the runner's packet (imu_packets:
+    a steady packet on the filter they initialise, and the first packet on a
+    fresh state), and fastblur at 480x752: device ms per call with every
+    kernel the call launches, device events per call, host syncs per call
+    and CUDA-event ms.  Uses only what every version of the port has, so it
+    reads a parent tree the same way."""
+    from flvis_tpu_torch.io.synthetic import PlanarScene
+    from flvis_tpu_torch.ops.kernels import fastblur
+    from flvis_tpu_torch.vio import vimotion
+
+    cfg, packets = imu_packets(device)
+    st = init = vimotion.init_state(cfg, device=device)
+    for pk in packets:
+        st = vimotion.imu_feed_batch(cfg, st, *pk)
+    _, scfg = system_config()
+    img = PlanarScene(scfg, plane_depth=8.0, seed=0).render(np.eye(3), np.zeros(3))[0]
+    img = torch.as_tensor(u8(img), device=device).float().contiguous()
+    out = {}
+    # The parent's init-mode call is ~3,400 small launches: 5 calls a profile.
+    for label, fn, reps in (
+            ("fastblur (480, 752)", lambda: fastblur.fast_score_nms_blur_kernel(img), 20),
+            ("imu_feed_batch steady", lambda: vimotion.imu_feed_batch(cfg, st, *packets[-1]), 20),
+            ("imu_feed_batch init", lambda: vimotion.imu_feed_batch(cfg, init, *packets[0]), 5)):
+        kern = profile_by_name(fn, reps)
+        dev = sum(ms * n for ms, n in kern.values())
+        events = sum(n for _, n in kern.values())
+        syncs = host_syncs(fn)
+        ev_ms = cuda_ms(fn)[0]
+        out[label] = (dev, events, syncs, ev_ms)
+        print(f"reading {label}: device {dev:.4f} ms per call in {events} device events "
+              f"({sum(n for k, (_, n) in kern.items() if 'emcpy' in k)} copies), {syncs} host "
+              f"syncs, CUDA events {ev_ms:.4f} ms")
+    return out
+
+
+def host_syncs(fn) -> int:
+    """Synchronising CUDA operations of one fn() call, as PyTorch's sync
+    debug mode warns of them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        fn()
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def check_sweep(img_l, img_r):
@@ -508,9 +704,7 @@ def check_hamming(desc_a, desc_b):
                 32.0 * (na + nb) + 4.0 * na * nb, 24.0 * na * nb)
     # A diagnostic, not the row's bound: the XOR + popcount form's floor on
     # the popcount pipe, 8 popcounts per pair, at the SM clock nvidia-smi reads.
-    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                                "--format=csv,noheader,nounits"], capture_output=True,
-                               text=True, check=True).stdout.split()[0])
+    mhz = sm_clock_mhz()
     sms = torch.cuda.get_device_properties(desc_a.device).multi_processor_count
     floor = 8.0 * na * nb / (sms * POPC_PER_SM_CLOCK * mhz * 1e6) * 1e3
     print(f"  hamming: popcount pipe floor {floor:.6f} ms (8 x {na} x {nb} popcounts, {sms} SMs "
@@ -744,10 +938,18 @@ def run_slice(cfg, scfg, cam, device):
 
 
 class StageTimer:
-    """Synced host time and call counts of the headline's stages."""
+    """Synced host time and call counts of the headline's stages; a stage
+    wrapped with probe_every = k runs every k-th call (up to PROBES of them)
+    under the sync debug mode, then PROBE_CALLS times more on the same
+    inputs (the stages are functional) under torch.profiler, untimed and
+    left out of the launch counts, and keeps its host syncs and device
+    events per call (the port's kernels by their launch counts)."""
+
+    PROBES, PROBE_CALLS = 8, 10
 
     def __init__(self):
         self.ms, self.calls, self._real = {}, {}, []
+        self.probed = {}        # label -> [(device events, host syncs)] of probed calls
         self.on = True          # off: calls pass through untimed
 
     def patch(self, obj, name, fn):
@@ -755,12 +957,17 @@ class StageTimer:
         self._real.append((obj, name, getattr(obj, name)))
         setattr(obj, name, fn)
 
-    def wrap(self, obj, name, label):
+    def wrap(self, obj, name, label, probe_every: int = 0):
         real = getattr(obj, name)
+        seen = [0]
 
         def timed(*a, **kw):
             if not self.on:
                 return real(*a, **kw)
+            seen[0] += 1
+            probed = self.probed.setdefault(label, [])
+            if probe_every and seen[0] % probe_every == 0 and len(probed) < self.PROBES:
+                return self._probe(probed, real, a, kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = real(*a, **kw)
@@ -770,6 +977,39 @@ class StageTimer:
             return out
 
         self.patch(obj, name, timed)
+
+    @classmethod
+    def _probe(cls, probed, real, a, kw):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        out = []
+        syncs = host_syncs(lambda: out.append(real(*a, **kw)))
+        counts = read_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(cls.PROBE_CALLS):
+                real(*a, **kw)
+            torch.cuda.synchronize()
+        # The port's own kernels by their launch counts (the tracer loses
+        # them in profiles this short), every other device event by the
+        # profile; then the counts as they were: the repeats are not the
+        # path's launches.
+        ours = sum(read_counts().values()) - sum(counts.values())
+        fns = [f for v in KERNEL_FNS.values() for f in v]
+        others = sum(e.device_type == DeviceType.CUDA and not any(f in e.name for f in fns)
+                     for e in p.events())
+        for name, fn in kernels().items():
+            fn.launches = counts[name]
+        probed.append((round((ours + others) / cls.PROBE_CALLS), syncs))
+        return out[0]
+
+    def probe_line(self, label) -> str:
+        """label's ms per timed call, and its probed calls' device events
+        and host syncs."""
+        p = self.probed.get(label, [])
+        return (f"{label}: {self.ms[label] / self.calls[label]:.4f} ms per call over "
+                f"{self.calls[label]} timed calls; {len(p)} probed calls: device events per "
+                f"call {sorted(e for e, _ in p)}, host syncs {sorted(s for _, s in p)}")
 
     def restore(self):
         for obj, name, real in reversed(self._real):
@@ -823,7 +1063,8 @@ def wrap_frame_stages(timer):
                       (runner.vimotion, "correction_from_vision"),
                       (runner.tracker, "make_keyframe_packet"), (runner.window_ba, "add_keyframe"),
                       (runner.window_ba, "optimize")):
-        timer.wrap(mod, name, f"{mod.__name__.rsplit('.', 1)[1]}.{name}")
+        timer.wrap(mod, name, f"{mod.__name__.rsplit('.', 1)[1]}.{name}",
+                   probe_every=16 if name == "imu_feed_batch" else 0)
 
 
 def run_headline(cfg, scfg, cam, device):
@@ -917,6 +1158,7 @@ def run_headline(cfg, scfg, cam, device):
           "calls): " + ", ".join(f"{k} {timer.ms[k]:.0f} ({timer.ms[k] / timer.calls[k]:.2f} "
                                  f"x{timer.calls[k]})" for k in timer.ms)
           + f"; outside these stages {1000.0 * plain_s - staged:.0f}")
+    print(f"headline {timer.probe_line('vimotion.imu_feed_batch')}")
     print(f"headline launches: {launches} (IMU-initialised frames {init_frames})")
     if not np.all(status[1:] == 1):
         fail(f"headline frames not TRACKING: {np.flatnonzero(status != 1).tolist()}")
@@ -1076,6 +1318,7 @@ def run_multiseq(cfg, scfg, cam, device):
           + ", ".join(f"{k} {timer.ms[k]:.0f} ({timer.ms[k] / timer.calls[k]:.2f} "
                       f"x{timer.calls[k]})" for k in timer.ms)
           + f"; outside these stages {1000.0 * wall - staged:.0f}")
+    print(f"multi-sequence {timer.probe_line('vimotion.imu_feed_batch')}")
     print(f"multi-sequence launches: {launches}")
     for s, lc in enumerate(ms.loopers):
         errs = closure_errors(lc, C_gt)
@@ -1155,6 +1398,7 @@ def main() -> int:
              check_fastblur(img_l), check_sweep(img_l, img_r),
              check_hamming(desc_l.contiguous(), desc_r.contiguous()),
              check_bowassign(kf_desc, kf_valid, cfg), check_gather(img_l, cfg, device)]
+    feed_readings(device)
     print(f"phase kernel checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_int64
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # C entry points of csrc/*.cu: (name, argtypes).  Every entry returns the
 # cudaError_t of its launches (0 = success) as an int.
 _SIGNATURES = {
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "flvis_schur_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P,
                          _P, _P, _P],
     "flvis_attitude_chain": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "flvis_imu_feed": [_PP, _I, _I, _I, _I, _I, _F, _F, _P],
     "flvis_fast_score_nms_blur": [_P, _P, _P, _I, _I, _F, _I, _F, _P],
     "flvis_sweep_maps": [_P, _P, _P, _P, _P, _I, _I, _P],
     "flvis_hamming_matrix": [_P, _P, _P, _I, _I, _P],

@@ -12,17 +12,20 @@ of at least 4 px, fastblur.py:30-35), the raw score is computed on the
 1-px-extended region so NMS at the tile edge sees its neighbours, and the
 blur matches ops/image.gaussian_blur(sigma=2, ksize=7) with edge padding.
 
-On the H100 the kernel (csrc/fastblur.cu) is memory-bound at its minimum
-traffic: one image in, two maps out, 12 B/pixel (4.3 MB, ~1.3 µs at
-3.35 TB/s, at 752×480); the ~250 flops per pixel of the FAST ring test are
-well under the card's float32 rate.  Each block stages its 32×16 output
-tile plus a 4-px clamped halo in shared memory (the clamp is the edge
-border, so no padded copy exists), computes the raw score on the tile+1
-ring into shared memory, then NMS, the margin mask and the separable blur
-from the same staged tile.  The 9-contiguous arc test is a bit trick on
-the 16-bit bright/dark masks.  Scores of [0, 255] images are sums of
-|differences| − threshold, so kernel and plain version agree to float
-rounding of the sum order (held at 1e-3).
+On the H100 (csrc/fastblur.cu) the byte bound is 12 B/pixel (one image
+in, two maps out; 4.3 MB, ~1.3 µs at 3.35 TB/s, at 752×480), but the FAST
+ring test costs over a hundred instructions for each scored point, so the
+instruction stream is the floor the design works on.  A block of 128
+threads owns 126 output columns by 11 rows; each thread owns one image
+column and walks the staged rows once, keeping the last 7 in registers,
+which feed both its ring tests and its blur.  The ring test forms the
+bright/dark masks from the sign bits of thr − |d| and d (one funnel shift
+each, exact against the plain version's compares) and tests arc 9 with a
+doubling chain on the duplicated mask.  Staging reads 16 bytes a
+lane at clamped coordinates (the edge border, so no padded copy exists);
+264 blocks at 480×752 are two on each of 132 SMs.  Scores of [0, 255] images
+are sums of |differences| − threshold, so kernel and plain version agree to
+float rounding of the sum order (held at 1e-3, with the same corner set).
 """
 
 from __future__ import annotations

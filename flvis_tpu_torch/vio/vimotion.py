@@ -9,15 +9,19 @@ vision poses.  World = ENU with gravity −z; q_w_i rotates IMU-frame vectors
 into the world.
 
 How the JAX control flow carries over:
-  - The lax.cond on `state.initialized` (vimotion.py:148-153) is a host
-    branch: one device→host read per packet.
-  - `_feed_scan`'s lax.scan is a Python loop over the samples (it runs only
-    while the filter initialises); both branches of each sample are
-    computed and selected on the device, as in the reference.
-  - `lax.cummax` is `torch.cummax`; the masked ring scatter (`mode="drop"`)
-    writes into one spare row that is then cut off.
-  - The steady-state attitude recurrence goes through
-    ops/kernels/imu_chain.attitude_chain (the CUDA kernel on the card).
+  - On the card, `imu_feed_batch` is one launch of
+    ops/kernels/imu_chain.imu_feed_kernel per packet: the kernel reads
+    `state.initialized` on the device and takes the lax.cond's branch
+    (vimotion.py:148-153) for the whole packet, so a packet costs no host
+    read.  It raises on what it cannot take; CPU tensors take
+    `imu_feed_batch_plain`.
+  - `imu_feed_batch_plain` is the plain composition, on any device, and the
+    kernel's oracle: the lax.cond is a host branch (one device→host read
+    per packet); `_feed_scan`'s lax.scan is a Python loop over the samples,
+    both branches of each sample computed and selected on the device, as in
+    the reference; `lax.cummax` is `torch.cummax`; the masked ring scatter
+    (`mode="drop"`) writes into one spare row that is then cut off; the
+    steady attitude recurrence is ops/kernels/imu_chain.attitude_chain_plain.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 from ..config import VioConfig
 from ..geometry import se3 as se3m, so3
 from ..geometry.se3 import SE3
-from ..ops.kernels.imu_chain import attitude_chain
+from ..ops.kernels import imu_chain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +110,24 @@ def _madgwick_step(q, gyro, acc, beta, dt):
 def imu_feed_batch(cfg: VioConfig, state: VioState, acc_batch, gyro_batch, t_batch,
                    valid=None) -> VioState:
     """Integrate a packet of IMU samples (B, 3), (B, 3), (B,); `valid` masks
-    padding rows.  Initialised filters take the batched steady path with the
-    attitude kernel; during initialisation the per-sample path runs."""
+    padding rows.  A CUDA state takes one launch of the fused kernel (steady
+    or init mode, chosen on the card); a CPU state the plain version."""
+    if state.t.is_cuda:
+        new = imu_chain.imu_feed_kernel(
+            tuple(getattr(state, k) for k in imu_chain.FEED_FIELDS), acc_batch, gyro_batch,
+            t_batch, valid, init_samples=cfg.init_samples, gravity=cfg.gravity,
+            madgwick_beta=cfg.madgwick_beta)
+        return dataclasses.replace(state, **dict(zip(imu_chain.FEED_FIELDS, new)))
+    if state.t.device.type == "cpu":
+        return imu_feed_batch_plain(cfg, state, acc_batch, gyro_batch, t_batch, valid)
+    raise ValueError(f"imu_feed_batch: unsupported device {state.t.device}")
+
+
+def imu_feed_batch_plain(cfg: VioConfig, state: VioState, acc_batch, gyro_batch, t_batch,
+                         valid=None) -> VioState:
+    """Plain version of imu_feed_batch on any device: initialised filters
+    take the batched steady path with the plain attitude chain; during
+    initialisation the per-sample path runs (a host read picks the path)."""
     if valid is None:
         valid = torch.ones(t_batch.shape[0], dtype=torch.bool, device=t_batch.device)
     if bool(state.initialized):
@@ -139,7 +159,7 @@ def _ring_append(state: VioState, valid, rows) -> VioState:
 def _feed_prop_batch(cfg: VioConfig, state: VioState, acc_b, gyro_b, t_b,
                      valid) -> VioState:
     """Steady-state propagation of a whole packet: batched precompute, the
-    sequential attitude kernel, and cumulative-sum integrals."""
+    sequential attitude chain, and cumulative-sum integrals."""
     dtype, dev = state.t.dtype, state.t.device
     g_w = torch.tensor([0.0, 0.0, -cfg.gravity], dtype=dtype, device=dev)
     j = _latest(state)
@@ -159,8 +179,7 @@ def _feed_prop_batch(cfg: VioConfig, state: VioState, acc_b, gyro_b, t_b,
     trust = torch.exp(-torch.abs(a_norm - 9.81) / 9.81 * 5.0)
     vf = valid.to(dtype)
     c = (10.0 * cfg.madgwick_beta) * trust * dt * vf
-    qs = attitude_chain(q_l.contiguous(), G.contiguous(), a_unit.contiguous(),
-                        c.contiguous())
+    qs = imu_chain.attitude_chain_plain(q_l, G, a_unit, c)
     acc_w = so3.rotate(qs, am) + g_w[None, :]
     dt_v = dt * vf
     vel = v_l[None, :] + torch.cumsum(acc_w * dt_v[:, None], 0)

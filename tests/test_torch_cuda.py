@@ -18,6 +18,11 @@ pytestmark = pytest.mark.cuda
 GRAD_TOL = 1e-3                                   # nvcc FMA contraction, [0, 255] inputs
 SCHUR_TOL = {"t": 2e-4, "q": 2e-5, "lm": 2e-3}    # tests/test_window_ba.py:201-207
 IMU_TOL = 1e-6                                    # small-angle series vs exact exp
+# The fused feed's pos and vel: the same left-to-right sums as the plain
+# version, but float32 with nvcc's FMA contraction on one side and PyTorch's
+# cumsum on the other; |pos|, |vel| stay below ~2 over these packets, so a
+# few ulps (1.2e-7 relative) over up to 48 summed terms stay under 1e-5.
+IMU_SUM_TOL = 1e-5
 FAST_TOL = 1e-3                                   # sum-order rounding, [0, 255] inputs
 
 
@@ -158,7 +163,127 @@ def test_imu_chain_kernel_matches_plain(dev):
     assert float((got - ref).abs().max()) <= IMU_TOL
 
 
-@pytest.mark.parametrize("shape", [(480, 752), (61, 87)])
+IMU_CASES = ("init_only", "straddle", "steady", "masked", "ring_wrap", "odd_ring", "big_ring")
+# Ring sizes by case: the kernel copies a ring of C % 4 == 0 slots in 16-byte
+# loads, others in 4-byte loads, and one of more than 448 slots in more than
+# one pass (the newest row then loaded on its own).
+IMU_CAPACITY = {"ring_wrap": 24, "odd_ring": 30, "big_ring": 1000}
+
+
+def imu_case(name):
+    """(VioConfig kwargs, packets (acc, gyro, t, valid or None)) of numpy
+    float32 IMU data from a seed: an init-only packet; a packet that
+    straddles init_samples with two masked rows; steady dynamic packets;
+    packets suffix-padded with invalid rows (one all invalid); a ring of 24
+    slots that the packets wrap; the same packets on rings of 30 and 1000
+    slots."""
+    rng = np.random.default_rng(11 + IMU_CASES.index(name))
+    kw = dict(imu_capacity=IMU_CAPACITY.get(name, 64), init_samples=20)
+    clock = [0.0]
+
+    def samples(n, dynamic=False, n_valid=None, masked=()):
+        t = clock[0] + 0.005 * np.arange(1, n + 1)
+        acc = np.tile([0.3, -0.2, 9.78], (n, 1)) + rng.normal(0.0, 0.02, (n, 3))
+        gyro = rng.normal(0.0, 0.002, (n, 3)) + [0.004, -0.003, 0.002]
+        if dynamic:
+            acc = acc + rng.normal([0.4, -0.2, -0.2], 0.3, (n, 3))
+            gyro = gyro + rng.normal(0.03, 0.15, (n, 3)) + [0.0, 0.0, 0.5]
+        valid = None
+        if n_valid is not None:           # suffix padding, as runner.pack_imu_frames
+            valid = np.arange(n) < n_valid
+            t[n_valid:], acc[n_valid:], gyro[n_valid:] = 0.0, 0.0, 0.0
+        if masked:
+            valid = np.ones(n, bool)
+            valid[list(masked)] = False
+        clock[0] = float(t.max()) if t.max() > 0 else clock[0]
+        return (acc.astype(np.float32), gyro.astype(np.float32), t.astype(np.float32), valid)
+
+    def wrapping():
+        return ([samples(16), samples(16, masked=(2, 7))]
+                + [samples(16, dynamic=True) for _ in range(4)])
+
+    packets = {
+        "init_only": lambda: [samples(12)],
+        "straddle": lambda: [samples(12), samples(16, masked=(3, 9))],
+        "steady": lambda: [samples(30)] + [samples(16, dynamic=True) for _ in range(3)],
+        "masked": lambda: [samples(30), samples(16, True, n_valid=11), samples(16, True),
+                           samples(16, n_valid=0)],
+        "ring_wrap": wrapping, "odd_ring": wrapping, "big_ring": wrapping,
+    }[name]()
+    return kw, packets
+
+
+def _imu_fields_close(got, ref):
+    """The fused feed's state against the plain one: the attitude within
+    IMU_TOL, pos and vel within IMU_SUM_TOL, every other field exact."""
+    from flvis_tpu_torch.ops.kernels import imu_chain
+
+    for k in imu_chain.FEED_FIELDS:
+        a, b = getattr(got, k), getattr(ref, k)
+        assert a.shape == b.shape and a.dtype == b.dtype, k
+        if k == "q":
+            assert float((a - b).abs().max()) <= IMU_TOL, k
+        elif k in ("pos", "vel"):
+            assert float((a - b).abs().max()) <= IMU_SUM_TOL, k
+        else:
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("case", IMU_CASES)
+def test_imu_feed_kernel_matches_plain(dev, case):
+    """vimotion.imu_feed_batch on a CUDA state (the fused kernel, one launch
+    a packet) against imu_feed_batch_plain on the card, packet by packet;
+    the caller's state is left as it was."""
+    from flvis_tpu_torch.config import VioConfig
+    from flvis_tpu_torch.ops.kernels import imu_chain
+    from flvis_tpu_torch.vio import vimotion
+
+    kw, packets = imu_case(case)
+    cfg = VioConfig(**kw)
+    sk = sp = vimotion.init_state(cfg, device=dev)
+    for acc, gyro, t, valid in packets:
+        args = [torch.as_tensor(x, device=dev) for x in (acc, gyro, t)]
+        args.append(None if valid is None else torch.as_tensor(valid, device=dev))
+        old = {k: getattr(sk, k).clone() for k in imu_chain.FEED_FIELDS}
+        n0 = imu_chain.imu_feed_kernel.launches
+        new = vimotion.imu_feed_batch(cfg, sk, *args)
+        sp = vimotion.imu_feed_batch_plain(cfg, sp, *args)
+        torch.cuda.synchronize()
+        assert imu_chain.imu_feed_kernel.launches == n0 + 1
+        assert all(torch.equal(getattr(sk, k), v) for k, v in old.items())
+        _imu_fields_close(new, sp)
+        sk = new
+    assert bool(sk.initialized) == (case != "init_only")
+
+
+def test_imu_feed_one_launch_no_host_sync(dev):
+    """Init, transition, masked, steady and all-invalid packets: each
+    imu_feed_batch call is one kernel launch and no host synchronisation."""
+    from flvis_tpu_torch.config import VioConfig
+    from flvis_tpu_torch.ops.kernels import imu_chain
+    from flvis_tpu_torch.vio import vimotion
+
+    for case in ("straddle", "masked"):
+        kw, packets = imu_case(case)
+        cfg = VioConfig(**kw)
+        st = vimotion.init_state(cfg, device=dev)
+        dev_packets = [[None if x is None else torch.as_tensor(x, device=dev) for x in p]
+                       for p in packets]
+        vimotion.imu_feed_batch(cfg, st, *dev_packets[0])     # the library is loaded
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for p in dev_packets:
+                n0 = imu_chain.attitude_chain_kernel.launches
+                st = vimotion.imu_feed_batch(cfg, st, *p)
+                assert imu_chain.attitude_chain_kernel.launches == n0 + 1
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert bool(st.initialized)
+
+
+@pytest.mark.parametrize("shape", [(480, 752), (61, 87), (45, 131)])
 def test_fastblur_kernel_matches_plain(dev, shape):
     from flvis_tpu_torch.ops.kernels import fastblur
 
@@ -168,6 +293,35 @@ def test_fastblur_kernel_matches_plain(dev, shape):
     s_p, b_p = fastblur.fast_score_nms_blur_plain(img, 20.0, 20)
     torch.cuda.synchronize()
     assert torch.equal(s_k > 0, s_p > 0)
+    assert float((s_k - s_p).abs().max()) <= FAST_TOL
+    assert float((b_k - b_p).abs().max()) <= FAST_TOL
+
+
+@pytest.mark.parametrize("kind", ["flat", "tile_edges", "u8_noise"])
+def test_fastblur_kernel_corner_cases(dev, kind):
+    """A flat image (every score 0: NMS all ties), squares with corners on
+    and beside the kernel's tile edges (126 columns by 11 rows), and an
+    integer-valued image as the loop node feeds it: the same corner set,
+    scores and blur within FAST_TOL."""
+    from flvis_tpu_torch.ops.kernels import fastblur
+
+    rng = np.random.default_rng(3)
+    H, W = 480, 752
+    if kind == "flat":
+        img = np.full((H, W), 100.0)
+    elif kind == "tile_edges":
+        img = np.full((H, W), 40.0)
+        for x in (126 * k + d for k in range(1, 6) for d in (-3, -1, 0, 2)):
+            for y in (11 * m + d for m in range(2, 43, 2) for d in (-2, 0, 1)):
+                img[y:y + 4, x:x + 4] = 220.0
+    else:
+        img = rng.integers(0, 256, (H, W))
+    img = torch.as_tensor(img, dtype=torch.float32, device=dev)
+    s_k, b_k = fastblur.fast_score_nms_blur(img, 20.0, 20)
+    s_p, b_p = fastblur.fast_score_nms_blur_plain(img, 20.0, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k > 0, s_p > 0)
+    assert (int((s_p > 0).sum()) == 0) == (kind == "flat")
     assert float((s_k - s_p).abs().max()) <= FAST_TOL
     assert float((b_k - b_p).abs().max()) <= FAST_TOL
 
@@ -279,6 +433,20 @@ def test_new_kernel_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError, match="expected q0"):
         imu_chain.attitude_chain(torch.zeros(4, device=dev), torch.zeros((3, 4), device=dev),
                                  torch.zeros((2, 3), device=dev), torch.zeros(3, device=dev))
+    from flvis_tpu_torch.config import VioConfig
+    from flvis_tpu_torch.vio import vimotion
+
+    cfg = VioConfig(imu_capacity=24)
+    st = vimotion.init_state(cfg, device=dev)
+    z3, z1 = torch.zeros((4, 3), device=dev), torch.zeros(4, device=dev)
+    with pytest.raises(ValueError, match="packet"):
+        vimotion.imu_feed_batch(cfg, st, torch.zeros((4, 2), device=dev), z3, z1)
+    with pytest.raises(ValueError, match="packet"):
+        vimotion.imu_feed_batch(cfg, st, z3[:0], z3[:0], z1[:0])
+    with pytest.raises(ValueError, match="bool"):
+        vimotion.imu_feed_batch(cfg, st, z3, z3, z1, z1)
+    with pytest.raises(ValueError, match="CUDA"):
+        vimotion.imu_feed_batch(cfg, st, z3.cpu(), z3, z1)
 
 
 def test_vio_loop_path_launches_its_kernels(dev):

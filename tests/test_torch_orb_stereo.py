@@ -80,6 +80,41 @@ def test_fastblur_matches_xla_fast_score_inside_margin():
                                np.asarray(raw), atol=1e-3, rtol=0)
 
 
+def test_fastblur_kernel_bit_tricks_over_all_masks():
+    """csrc/fastblur.cu's ring test, modelled bit for bit in numpy: with
+    m = thr − |d|, sign(m) & ~sign(d) and sign(m) & sign(d) are the plain
+    version's d > thr and d < −thr (float32 edge cases, ±0 among them), and
+    its arc test — the mask built by funnel shifts, doubled by one byte
+    permute, then runs of 2, 4, 8, 9 — is the plain version's 9-roll AND on
+    every one of the 65,536 circle masks."""
+    thr = np.float32(20.0)
+    d = np.array([thr, -thr, 0.0, -0.0, 255.0, -255.0, np.nextafter(thr, np.float32(99)),
+                  np.nextafter(thr, np.float32(0)), np.nextafter(-thr, np.float32(-99)),
+                  np.nextafter(-thr, np.float32(0))], np.float32)
+    sign = lambda x: (x.view(np.uint32) >> 31).astype(bool)
+    ext = sign(thr - np.abs(d))
+    np.testing.assert_array_equal(ext & ~sign(d), d > thr)
+    np.testing.assert_array_equal(ext & sign(d), d < -thr)
+
+    m = np.arange(1 << 16, dtype=np.uint32)          # bit k: circle point k passes
+    bits = (m[:, None] >> np.arange(16, dtype=np.uint32)) & 1
+    mask = np.zeros_like(m)
+    for k in range(16):                               # __funnelshift_l(bit, mask, 1)
+        mask = (mask << 1) | bits[:, k]
+    dd = mask | (mask << 16)                          # __byte_perm(mask, 0, 0x1010)
+    r = dd & (dd >> 1)
+    r &= r >> 2
+    r &= r >> 4
+    r &= dd >> 8
+    kernel = (r & 0xFFFF) != 0
+    acc = bits.astype(bool)
+    for k in range(1, 9):                             # fast_score_nms_blur_plain's arc9
+        acc = acc & np.roll(bits.astype(bool), -k, axis=1)
+    plain = acc.any(axis=1)
+    np.testing.assert_array_equal(kernel, plain)
+    assert 0 < plain.sum() < plain.size
+
+
 def test_detect_and_compute_matches(pair):
     img = pair[0]
     uv_j, d_j, v_j, a_j = (np.asarray(x) for x in
