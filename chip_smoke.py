@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py --mma-rates
 
 Builds the port's CUDA kernels from flvis_tpu_torch/csrc/, holds each
 kernel against its plain PyTorch version at the shapes the main paths give
 it (and times each kernel — its device time from torch.profiler and its
 wrapper's time between CUDA events — its plain version and, where one
-PyTorch call computes the same function, that call), then drives three
+PyTorch call computes the same function, that call; hamming in both its
+modes, the match mode over a bucket of 8 keyframe pairs), then drives three
 paths of the port at the EuRoC-sized bench configuration:
 
   a. the stereo slice — SlamSystem.process_frames (tracker + keyframe
@@ -24,10 +26,18 @@ Each path runs with every kernel's launch count set to 0 just before it and
 read just after; the run fails unless every frame tracked, the trajectory
 error is in bound, the loop paths closed loops, each kernel of each path
 launched on it, and PGO on the headline's last pose graph, run twice
-more, gives the headline's own bits.  Exits non-zero, printing no result,
-if there is no CUDA device or any phase fails.  The second-to-last lines hold the kernel
-table (JSON) and the card's name and power limit; the last line is
+more, gives the headline's own bits.  Phases b and c print the loop
+node's verification per verified pair (synced ms, device events) and the
+accepted closures; with --parent DIR, phases b and c of the port in DIR (a
+`git archive` of another commit, run in a subprocess with this script's
+probes) follow, and both trees' readings stand side by side.  Exits
+non-zero, printing no result, if there is no CUDA device or any phase
+fails.  The second-to-last lines hold the kernel table (JSON) and the
+card's name and power limit; the last line is
 {"ok": true, "device": {...}}.
+
+With --mma-rates it only reads the issue rate and latency of the warp-level
+mma.sync forms a Hamming distance can run on (see mma_rates).
 """
 
 import collections
@@ -36,6 +46,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -56,17 +67,23 @@ KERNEL_FNS = {"grad_blur": ("grad_blur_kernel",),
               "schur_step": ("schur_reduce_solve", "schur_backsub"),
               "imu_chain": ("attitude_chain_kernel", "imu_feed_kernel"),
               "fastblur": ("fastblur_kernel",),
-              "sweep": ("sweep_kernel",), "hamming": ("hamming_kernel",),
+              "sweep": ("sweep_kernel",),
+              "hamming": ("hamming_kernel", "hamming_match_kernel"),
               "bowassign": ("bowassign_kernel",), "gather": ("gather_kernel",)}
 # Card peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # float32 operations/s outside the tensor cores, and dense int8 tensor-core
 # operations/s.  Integer XOR/popcount work would not run at the float32 rate:
 # the CUDA programming guide's throughput table gives compute capability 9.0
 # 16 population counts per SM per clock, an eighth of its float32 rate
-# (check_hamming prints that pipe's floor beside its row).
+# (check_hamming prints that pipe's floor beside its row).  The binary
+# tensor-core path (mma.sync m16n8k256 .b1, csrc/hamming.cu's) issues at the
+# int8 form's m16n8k32 rate with 8x its bits a product (--mma-rates reads
+# both), so its peak is 8x the int8 one, a 1-bit multiply-add counted as
+# two operations as an int8 one is.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_I8 = 1979e12
+PEAK_B1 = 8 * PEAK_I8
 POPC_PER_SM_CLOCK = 16
 LANES_PER_SM_CLOCK = 128              # 4 schedulers, one warp instruction a clock each
 # csrc/fastblur.cu's tile: TY rows by TX columns, NT threads a block.
@@ -536,7 +553,6 @@ def sass_instructions(fn_name: str) -> int:
     """Instructions of the __global__ fn_name in the built library's SASS
     (cuobjdump -sass), NOPs not counted."""
     import re
-    from pathlib import Path
 
     from flvis_tpu_torch.ops.kernels import _build
 
@@ -678,7 +694,11 @@ def check_sweep(img_l, img_r):
     return row
 
 
-def check_hamming(desc_a, desc_b):
+def check_hamming(desc_a, desc_b, descs, valids):
+    """Matrix mode (the TPU kernel's function) at 1000 x 1000 against its
+    plain version and the ±1 matmul; match mode (the path's) over a bucket
+    of 8 keyframe pairs (k, 7 - k) of the out-and-back, and over one pair,
+    against mutual_ratio_match_plain on the card, every output exact."""
     from flvis_tpu_torch.ops import orb
     from flvis_tpu_torch.ops.kernels import hamming
 
@@ -699,16 +719,60 @@ def check_hamming(desc_a, desc_b):
         fail(f"hamming_matrix kernel disagrees with its plain version: {err}")
     row = entry("hamming", "flvis_tpu_torch/csrc/hamming.cu",
                 "flvis_tpu/ops/pallas/hamming.py:56", err,
-                device_ms(lambda: hamming.hamming_matrix_kernel(desc_a, desc_b), "hamming"),
+                device_ms(lambda: hamming.hamming_matrix_kernel(desc_a, desc_b), "hamming",
+                          ("hamming_kernel",)),
                 k_ms, p_ms, l_ms,
-                32.0 * (na + nb) + 4.0 * na * nb, 24.0 * na * nb)
+                32.0 * (na + nb) + 4.0 * na * nb, 512.0 * na * nb, PEAK_B1)
     # A diagnostic, not the row's bound: the XOR + popcount form's floor on
     # the popcount pipe, 8 popcounts per pair, at the SM clock nvidia-smi reads.
     mhz = sm_clock_mhz()
     sms = torch.cuda.get_device_properties(desc_a.device).multi_processor_count
-    floor = 8.0 * na * nb / (sms * POPC_PER_SM_CLOCK * mhz * 1e6) * 1e3
-    print(f"  hamming: popcount pipe floor {floor:.6f} ms (8 x {na} x {nb} popcounts, {sms} SMs "
-          f"x {POPC_PER_SM_CLOCK} a clock at {mhz:.0f} MHz, clocks.max.sm)")
+
+    def popc_floor(pairs):
+        return 8.0 * pairs / (sms * POPC_PER_SM_CLOCK * mhz * 1e6) * 1e3
+
+    print(f"  hamming: popcount pipe floor {popc_floor(na * nb):.6f} ms (8 x {na} x {nb} "
+          f"popcounts, {sms} SMs x {POPC_PER_SM_CLOCK} a clock at {mhz:.0f} MHz, clocks.max.sm)")
+
+    # Match mode: the loop node's bucket, the reference's 0.75 ratio.
+    B = len(descs)
+    args = (torch.stack(descs).contiguous(), torch.stack(descs[::-1]).contiguous(),
+            torch.stack(valids).contiguous(), torch.stack(valids[::-1]).contiguous())
+    one = tuple(a[:1].contiguous() for a in args)
+    errs, m_err = [], 0
+    for x in (args, one):
+        m_k = hamming.mutual_ratio_match_kernel(*x)
+        m_again = hamming.mutual_ratio_match_kernel(*x)
+        m_p = hamming.mutual_ratio_match_plain(*x)
+        torch.cuda.synchronize()
+        errs += [n for n, a, b, c in zip(("best_ab", "good", "d1", "d2", "best_ba"), m_k, m_p,
+                                         m_again)
+                 if not (torch.equal(a, b) and torch.equal(a, c))]
+        m_err = max([m_err] + [int((a.long() - b.long()).abs().max()) for a, b in zip(m_k, m_p)])
+    n_good = int(m_p[1].sum())
+    mk_ms, mp_ms = cuda_ms(lambda: hamming.mutual_ratio_match_kernel(*args),
+                           lambda: hamming.mutual_ratio_match_plain(*args))
+    fns = ("hamming_match_kernel",)
+    m_dev = device_ms(lambda: hamming.mutual_ratio_match_kernel(*args), "hamming", fns)
+    one_dev = device_ms(lambda: hamming.mutual_ratio_match_kernel(*one), "hamming", fns)
+    ma, mb = args[0].shape[1], args[1].shape[1]
+    # Bytes: descriptors and validity in; best_ab, good, d1, d2 and best_ba
+    # out.  Operations: one 256-bit product a distance, B·Na·Nb·512 at the
+    # binary path's rate (the int8 rate's time is printed as a diagnostic).
+    m_bytes = B * (33.0 * (ma + mb) + 17.0 * ma + 8.0 * mb)
+    m_ops = B * ma * mb * 512.0
+    m_bound, m_by = bound(m_bytes, m_ops, PEAK_B1)
+    print(f"hamming match mode (B={B}, {ma}x{mb}, {int(args[2].sum())} / {int(args[3].sum())} "
+          f"valid, {n_good} good): outputs {'bit-equal' if not errs else errs} to "
+          f"mutual_ratio_match_plain and on a repeat, also at B=1 (max_abs_err {m_err}); "
+          f"device {m_dev:.4f} ms a bucket (B=1: {one_dev:.4f}), kernel {mk_ms:.4f} ms, plain "
+          f"{mp_ms:.4f} ms, bound {m_bound:.6f} ms ({m_by}, binary rate); at the int8 rate "
+          f"{m_ops / PEAK_I8 * 1e3:.6f} ms; popcount pipe floor "
+          f"{popc_floor(B * ma * mb):.6f} ms")
+    if errs or m_err:
+        fail(f"hamming match mode disagrees with its plain version: {errs}, {m_err}")
+    row.update(match_ms=m_dev, match_one_ms=one_dev, match_event_ms=mk_ms, match_plain_ms=mp_ms,
+               match_bound_ms=m_bound, match_bound_by=m_by, match_max_abs_err=m_err)
     return row
 
 
@@ -862,23 +926,29 @@ def check_gather(img, cfg, device):
 
 
 def kernels():
+    """{kernel: its wrappers' launch counters}: hamming counts both modes.
+    A tree without the match mode (the parent, read with --parent) counts
+    what it has."""
     from flvis_tpu_torch.ops.kernels import (bowassign, fastblur, gather, gradpyr, hamming,
                                              imu_chain, schur, sweep)
 
-    return {"grad_blur": gradpyr.grad_blur_kernel, "schur_step": schur.schur_step_kernel,
-            "imu_chain": imu_chain.attitude_chain_kernel,
-            "fastblur": fastblur.fast_score_nms_blur_kernel,
-            "sweep": sweep.sweep_maps_kernel, "hamming": hamming.hamming_matrix_kernel,
-            "bowassign": bowassign.bow_tf_kernel, "gather": gather.gather_windows_kernel}
+    ham = (hamming.hamming_matrix_kernel,) + tuple(
+        f for f in (getattr(hamming, "mutual_ratio_match_kernel", None),) if f is not None)
+    return {"grad_blur": (gradpyr.grad_blur_kernel,), "schur_step": (schur.schur_step_kernel,),
+            "imu_chain": (imu_chain.attitude_chain_kernel,),
+            "fastblur": (fastblur.fast_score_nms_blur_kernel,),
+            "sweep": (sweep.sweep_maps_kernel,), "hamming": ham,
+            "bowassign": (bowassign.bow_tf_kernel,), "gather": (gather.gather_windows_kernel,)}
 
 
 def reset_counts():
-    for fn in kernels().values():
-        fn.launches = 0
+    for fns in kernels().values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernels().items()}
+    return {name: sum(fn.launches for fn in fns) for name, fns in kernels().items()}
 
 
 def ate(C_est, C_gt):
@@ -938,18 +1008,22 @@ def run_slice(cfg, scfg, cam, device):
 
 
 class StageTimer:
-    """Synced host time and call counts of the headline's stages; a stage
-    wrapped with probe_every = k runs every k-th call (up to PROBES of them)
-    under the sync debug mode, then PROBE_CALLS times more on the same
-    inputs (the stages are functional) under torch.profiler, untimed and
-    left out of the launch counts, and keeps its host syncs and device
-    events per call (the port's kernels by their launch counts)."""
+    """Synced host time, calls and work units (units(args) a call; 1 by
+    default) of the headline's stages.  A stage wrapped with probe_every = k
+    is probed after every k-th call (up to PROBES of them): the same call
+    once more under the sync debug mode and PROBE_CALLS times more under
+    torch.profiler (the stages are functional), untimed and left out of the
+    launch counts; the probe keeps host syncs and device events per call
+    (the port's kernels by their launch counts) and the call's units.  The
+    probes' wall time (probe_s) is left out of every enclosing timed call,
+    and the phases leave it out of their frames/s."""
 
     PROBES, PROBE_CALLS = 8, 10
 
     def __init__(self):
-        self.ms, self.calls, self._real = {}, {}, []
-        self.probed = {}        # label -> [(device events, host syncs)] of probed calls
+        self.ms, self.calls, self.units, self._real = {}, {}, {}, []
+        self.probe_s = 0.0      # wall seconds spent in probes
+        self.probed = {}        # label -> [(device events, host syncs, units)] of probed calls
         self.on = True          # off: calls pass through untimed
 
     def patch(self, obj, name, fn):
@@ -957,35 +1031,38 @@ class StageTimer:
         self._real.append((obj, name, getattr(obj, name)))
         setattr(obj, name, fn)
 
-    def wrap(self, obj, name, label, probe_every: int = 0):
+    def wrap(self, obj, name, label, probe_every: int = 0, units=None):
         real = getattr(obj, name)
-        seen = [0]
 
         def timed(*a, **kw):
             if not self.on:
                 return real(*a, **kw)
-            seen[0] += 1
-            probed = self.probed.setdefault(label, [])
-            if probe_every and seen[0] % probe_every == 0 and len(probed) < self.PROBES:
-                return self._probe(probed, real, a, kw)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0, p0 = time.perf_counter(), self.probe_s
             out = real(*a, **kw)
             torch.cuda.synchronize()
-            self.ms[label] = self.ms.get(label, 0.0) + 1000.0 * (time.perf_counter() - t0)
+            n = units(a) if units else 1
+            dt = time.perf_counter() - t0 - (self.probe_s - p0)
+            self.ms[label] = self.ms.get(label, 0.0) + 1000.0 * dt
             self.calls[label] = self.calls.get(label, 0) + 1
+            self.units[label] = self.units.get(label, 0) + n
+            probed = self.probed.setdefault(label, [])
+            if probe_every and self.calls[label] % probe_every == 0 and len(probed) < self.PROBES:
+                tp = time.perf_counter()
+                probed.append(self._probe(real, a, kw) + (n,))
+                self.probe_s += time.perf_counter() - tp
             return out
 
         self.patch(obj, name, timed)
 
     @classmethod
-    def _probe(cls, probed, real, a, kw):
+    def _probe(cls, real, a, kw):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        out = []
-        syncs = host_syncs(lambda: out.append(real(*a, **kw)))
-        counts = read_counts()
+        counters = [fn for fns in kernels().values() for fn in fns]
+        counts = [fn.launches for fn in counters]
+        syncs = host_syncs(lambda: real(*a, **kw))
         with profile(activities=[ProfilerActivity.CUDA]) as p:
             for _ in range(cls.PROBE_CALLS):
                 real(*a, **kw)
@@ -994,22 +1071,29 @@ class StageTimer:
         # them in profiles this short), every other device event by the
         # profile; then the counts as they were: the repeats are not the
         # path's launches.
-        ours = sum(read_counts().values()) - sum(counts.values())
+        ours = sum(fn.launches for fn in counters) - sum(counts)
         fns = [f for v in KERNEL_FNS.values() for f in v]
         others = sum(e.device_type == DeviceType.CUDA and not any(f in e.name for f in fns)
                      for e in p.events())
-        for name, fn in kernels().items():
-            fn.launches = counts[name]
-        probed.append((round((ours + others) / cls.PROBE_CALLS), syncs))
-        return out[0]
+        for fn, c in zip(counters, counts):
+            fn.launches = c
+        return round(ours / (cls.PROBE_CALLS + 1) + others / cls.PROBE_CALLS), syncs
+
+    def per_unit(self, label):
+        """(synced ms per unit over every call, device events per unit: the
+        probed calls' mean events a call times calls over units, or None)."""
+        p = self.probed.get(label, [])
+        ev = (sum(e for e, _, _ in p) / len(p) * self.calls[label] / self.units[label]
+              if p else None)
+        return self.ms[label] / self.units[label], ev
 
     def probe_line(self, label) -> str:
-        """label's ms per timed call, and its probed calls' device events
-        and host syncs."""
+        """label's ms per call, and its probed calls' device events and host
+        syncs."""
         p = self.probed.get(label, [])
         return (f"{label}: {self.ms[label] / self.calls[label]:.4f} ms per call over "
                 f"{self.calls[label]} timed calls; {len(p)} probed calls: device events per "
-                f"call {sorted(e for e, _ in p)}, host syncs {sorted(s for _, s in p)}")
+                f"call {sorted(e for e, _, _ in p)}, host syncs {sorted(s for _, s, _ in p)}")
 
     def restore(self):
         for obj, name, real in reversed(self._real):
@@ -1042,14 +1126,56 @@ def loop_sequence(scfg):
 NESTED = ("verification",)              # timed inside "loop gate decisions + verify" too
 
 
-def wrap_loop_node(timer, lc):
-    """Time the chunked loop node's stages of one LoopCloser."""
+def verified_pairs(args) -> int:
+    """The distinct candidate pairs of one verification call: a bucket
+    (iis, jjs), padded with its last pair, or one pair (i, j)."""
+    i, j = args[0], args[1]
+    return len(set(zip(i, j))) if isinstance(i, (list, tuple)) else 1
+
+
+def wrap_loop_node(timer, lc, accepted):
+    """Time the chunked loop node's stages of one LoopCloser, probe its
+    verification calls (device events and host syncs per verified pair),
+    and append each accepted closure's (i, j, n_match, n_inl, T_ij as q +
+    t) to `accepted`.  The verification stage is _verify_device_batch (a
+    bucket of pairs) where the tree has it, else _verify_device (one pair)."""
     timer.wrap(lc, "add_keyframes_batch", "loop ingest")
     timer.wrap(lc, "gate_candidates", "loop gate")
     timer.wrap(lc, "dispatch_verify", "loop gate decisions + verify")
-    timer.wrap(lc, "_verify_device", "verification")
+    name = "_verify_device_batch" if hasattr(lc, "_verify_device_batch") else "_verify_device"
+    timer.wrap(lc, name, "verification", probe_every=1, units=verified_pairs)
     timer.wrap(lc, "resolve_verify", "loop accept")
     timer.wrap(lc, "optimize_graph", "pgo")
+    real = lc._verify_accept
+
+    def accept(i, j, row):
+        out = real(i, j, row)
+        if out is not None:
+            r = np.asarray(row, np.float64)
+            accepted.append((i, j, int(r[7]), int(r[8]), r[:7].tolist()))
+        return out
+
+    timer.patch(lc, "_verify_accept", accept)
+
+
+def verification_summary(timer, accepted, label) -> dict:
+    """Print and return a phase's verification readings: synced ms and
+    device events per verified pair, calls (buckets) and the closures
+    (accepted: wrap_loop_node's list, or one such list a sequence, whose
+    rows then lead with the sequence)."""
+    if not timer.calls.get("verification"):
+        fail(f"{label}: no verification ran")
+    ms, ev = timer.per_unit("verification")
+    p = timer.probed.get("verification", [])
+    if accepted and isinstance(accepted[0], list):
+        accepted = [(q,) + c for q, seq in enumerate(accepted) for c in seq]
+    out = {"pairs": timer.units["verification"], "calls": timer.calls["verification"],
+           "ms_per_pair": ms, "events_per_pair": ev, "closures": accepted}
+    print(f"{label} verification: {ms:.4f} synced ms per verified pair over {out['pairs']} "
+          f"pairs in {out['calls']} calls; {ev:.1f} device events per verified pair over "
+          f"{len(p)} probed calls (per call {[e for e, _, _ in p]}, pairs {[n for _, _, n in p]},"
+          f" host syncs {[h for _, h, _ in p]})")
+    return out
 
 
 def wrap_frame_stages(timer):
@@ -1070,7 +1196,8 @@ def wrap_frame_stages(timer):
 def run_headline(cfg, scfg, cam, device):
     """SlamSystem(use_imu=True, use_loop=True).process_frames_vio over the
     loop-event sequence, the loop node resolving one chunk late, then
-    flush_loop; returns the launch counts of the run."""
+    flush_loop; returns the launch counts of the run, the device busy share
+    and the verification summary."""
     from flvis_tpu_torch.geometry import se3
     from flvis_tpu_torch.pipeline.runner import SlamSystem
 
@@ -1080,7 +1207,8 @@ def run_headline(cfg, scfg, cam, device):
     lc = slam.loop_closer
     timer = StageTimer()
     wrap_frame_stages(timer)
-    wrap_loop_node(timer, lc)
+    accepted = []
+    wrap_loop_node(timer, lc, accepted)
     pgo_calls = record_pgo(timer)
     reset_counts()
     t0 = time.perf_counter()
@@ -1091,12 +1219,12 @@ def run_headline(cfg, scfg, cam, device):
         sl = slice(a, b)
 
         def run():
-            tc = time.perf_counter()
+            tc, pc = time.perf_counter(), timer.probe_s
             outs.append(slam.process_frames_vio(imgs0[sl], imgs1[sl], ts=frame_t[sl],
                                                 imu_acc=accs[sl], imu_gyro=gyros[sl],
                                                 imu_t=imuts[sl]))
             torch.cuda.synchronize()
-            return time.perf_counter() - tc
+            return time.perf_counter() - tc - (timer.probe_s - pc)
 
         if a != p0:
             plain_s += run()
@@ -1117,10 +1245,10 @@ def run_headline(cfg, scfg, cam, device):
         print("headline profile, top host ops (self CPU ms, calls): "
               + ", ".join(f"{e.key} {e.self_cpu_time_total / 1000.0:.1f} x{e.count}"
                           for e in host))
-    tc = time.perf_counter()
+    tc, pc = time.perf_counter(), timer.probe_s
     slam.flush_loop()                   # the last chunks' gate and verification
     torch.cuda.synchronize()
-    plain_s += time.perf_counter() - tc
+    plain_s += time.perf_counter() - tc - (timer.probe_s - pc)
     wall_s = time.perf_counter() - t0
     launches = read_counts()
     timer.restore()
@@ -1144,16 +1272,18 @@ def run_headline(cfg, scfg, cam, device):
     closures = [(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures]
     n_imu = np.cumsum([len(t) for t in imuts])
     init_frames = int(np.sum(n_imu[:-1] >= cfg.vio.init_samples))
-    n_verify = timer.calls.get("verification", 0)
+    verify = verification_summary(timer, accepted, "headline")
     print(f"headline: {LOOP_FRAMES} frames, {n_kf} keyframes ({lc.count} in the loop "
           f"store), statuses {np.bincount(status)}, {len(closures)} closures "
-          f"{closures[:8]}{'...' if len(closures) > 8 else ''}, {n_verify} verifications")
+          f"{closures[:8]}{'...' if len(closures) > 8 else ''}, {verify['pairs']} verified "
+          f"pairs in {verify['calls']} verification calls")
     print(f"headline ATE: odometry {ate_raw:.5f} m, loop-corrected {ate_cor:.5f} m "
           f"(bound {bound_m:.5f} over a {path:.2f} m path); T_map_odom t "
           f"{lc.T_map_odom.t.cpu().numpy().round(5).tolist()}")
     staged = sum(v for k, v in timer.ms.items() if k not in NESTED)
     print(f"headline: {n_plain / plain_s:.2f} frames/s over the {n_plain} unprofiled frames "
-          f"({plain_s:.1f} s; {wall_s:.1f} s for the whole phase incl. the profiled window)")
+          f"({plain_s:.1f} s; {wall_s:.1f} s for the whole phase incl. the profiled window and "
+          f"{timer.probe_s:.1f} s of stage probes)")
     print("headline stages over the unprofiled frames, synced host ms in all (per call x "
           "calls): " + ", ".join(f"{k} {timer.ms[k]:.0f} ({timer.ms[k] / timer.calls[k]:.2f} "
                                  f"x{timer.calls[k]})" for k in timer.ms)
@@ -1173,10 +1303,11 @@ def run_headline(cfg, scfg, cam, device):
     for name in ("fastblur", "sweep"):
         if launches[name] < n_kf:
             fail(f"{name} launched {launches[name]} times < {n_kf} keyframes")
-    if launches["hamming"] < max(n_verify, 1):
-        fail(f"hamming launched {launches['hamming']} times < {n_verify} verifications")
+    if launches["hamming"] < max(verify["calls"], 1):
+        fail(f"hamming launched {launches['hamming']} times < {verify['calls']} verification "
+             "calls")
     check_pgo_repeats(pgo_calls)
-    return launches, busy
+    return launches, busy, verify
 
 
 def record_pgo(timer):
@@ -1285,8 +1416,9 @@ def run_multiseq(cfg, scfg, cam, device):
                       pipelined=True, device=device)
     timer = StageTimer()
     wrap_frame_stages(timer)
-    for lc in ms.loopers:
-        wrap_loop_node(timer, lc)
+    accepted = [[] for _ in ms.loopers]
+    for lc, acc in zip(ms.loopers, accepted):
+        wrap_loop_node(timer, lc, acc)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1296,7 +1428,7 @@ def run_multiseq(cfg, scfg, cam, device):
                                          *imu[k]))
     rets.append(ms.flush())
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - timer.probe_s
     launches = read_counts()
     timer.restore()
 
@@ -1309,7 +1441,8 @@ def run_multiseq(cfg, scfg, cam, device):
     pairs = [[(c.kf_i, c.kf_j) for c in lc.closures] for lc in ms.loopers]
     staged = sum(v for k, v in timer.ms.items() if k not in NESTED)
     print(f"multi-sequence: {S} sequences x {n} frames in {len(outs)} chunks of {T}, "
-          f"{S * n / wall:.2f} sequence-frames/s ({wall:.1f} s), keyframes "
+          f"{S * n / wall:.2f} sequence-frames/s ({wall:.1f} s, stage probes' "
+          f"{timer.probe_s:.1f} s left out), keyframes "
           f"{[lc.count for lc in ms.loopers]}, closures {[len(p) for p in pairs]}")
     print(f"multi-sequence ATE per sequence (bound {bound_m:.5f} over a {path:.2f} m path): "
           f"odometry {[round(a, 5) for a in ates]}, loop-corrected "
@@ -1319,6 +1452,7 @@ def run_multiseq(cfg, scfg, cam, device):
                       f"x{timer.calls[k]})" for k in timer.ms)
           + f"; outside these stages {1000.0 * wall - staged:.0f}")
     print(f"multi-sequence {timer.probe_line('vimotion.imu_feed_batch')}")
+    verify = verification_summary(timer, accepted, "multi-sequence")
     print(f"multi-sequence launches: {launches}")
     for s, lc in enumerate(ms.loopers):
         errs = closure_errors(lc, C_gt)
@@ -1345,14 +1479,179 @@ def run_multiseq(cfg, scfg, cam, device):
     for name in ("bowassign", "gather"):
         if launches[name] < 1:
             fail(f"{name} never launched on the multi-sequence path")
-    return launches
+    if launches["hamming"] < verify["calls"]:
+        fail(f"hamming launched {launches['hamming']} times < {verify['calls']} verification "
+             "calls")
+    return launches, verify
+
+
+def run_phases_of(tree: str) -> int:
+    """Phases (b) and (c) of the port in `tree` (a checkout, e.g. a `git
+    archive` of a parent commit) with this script's stage probes; the last
+    line of output is a JSON object of their verification summaries."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import flvis_tpu_torch
+    from flvis_tpu_torch.ops.kernels import _build
+
+    # The tree's kernels built before the phases, as main() builds this tree's.
+    print(f"phases of {Path(flvis_tpu_torch.__file__).parent}; kernel build "
+          f"{_build.load_library()[1]['build_s']:.2f} s")
+    device = torch.device("cuda", 0)
+    cfg, scfg = system_config()
+    cam = make_camera(scfg, device)
+    _, _, vb = run_headline(cfg, scfg, cam, device)
+    _, vc = run_multiseq(cfg, scfg, cam, device)
+    print(json.dumps({"b": vb, "c": vc}))
+    return 0
+
+
+def compare_with_parent(tree: str, ours: dict) -> None:
+    """Phases (b) and (c) of the tree at `tree` in a subprocess (its output
+    shown under "parent|"), then its verification readings and closures
+    beside this tree's: synced ms and device events per verified pair, and
+    the accepted closures' (i, j), n_match, n_inl and T_ij."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phases-of", tree],
+                          capture_output=True, text=True)
+    for line in proc.stdout.splitlines()[:-1] + proc.stderr.splitlines():
+        print(f"parent| {line}")
+    if proc.returncode != 0:
+        fail(f"the phases of {tree} failed ({proc.returncode})")
+    theirs = json.loads(proc.stdout.splitlines()[-1])
+    ours = json.loads(json.dumps(ours))          # tuples as the parent's JSON lists
+    print(f"phases b and c of {tree}: {time.perf_counter() - t0:.1f} s")
+    for ph in ("b", "c"):
+        a, b = ours[ph], theirs[ph]
+        print(f"verification per verified pair, phase {ph}: this tree {a['ms_per_pair']:.4f} ms "
+              f"and {a['events_per_pair']:.1f} device events ({a['pairs']} pairs in "
+              f"{a['calls']} calls); parent {b['ms_per_pair']:.4f} ms and "
+              f"{b['events_per_pair']:.1f} events ({b['pairs']} pairs in {b['calls']} calls); "
+              f"ratio {a['ms_per_pair'] / b['ms_per_pair']:.3f} ms, "
+              f"{a['events_per_pair'] / b['events_per_pair']:.3f} events")
+        # Rows (..., i, j, n_match, n_inl, T_ij as q + t), in the order accepted.
+        ca, cb = a["closures"], b["closures"]
+        same = [x[:-1] for x in ca] == [x[:-1] for x in cb]
+        dT = max((abs(u - v) for x, y in zip(ca, cb) for u, v in zip(x[-1], y[-1])),
+                 default=0.0)
+        print(f"closures, phase {ph}: this tree {len(ca)}, parent {len(cb)}; (i, j, n_match, "
+              f"n_inl) {'all equal' if same else 'DIFFERENT'}; max |T_ij difference| {dT:.3e}"
+              + ("" if same else "; differing: " + str(
+                  [(x[:-1], y[:-1]) for x, y in zip(ca, cb) if x[:-1] != y[:-1]][:8])))
+
+
+MMA_RATES_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+#define MMA(NAME, SHAPE_TYPES)                                                               \
+  __device__ __forceinline__ void NAME(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,   \
+                                       uint32_t b1) {                                      \
+    asm volatile("mma.sync.aligned." SHAPE_TYPES " {%0, %1, %2, %3}, {%4, %5, %6, %7}, "   \
+                 "{%8, %9}, {%0, %1, %2, %3};\n"                                            \
+                 : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])                           \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));          \
+  }
+MMA(mma_and, "m16n8k256.row.col.s32.b1.b1.s32.and.popc")
+MMA(mma_xor, "m16n8k256.row.col.s32.b1.b1.s32.xor.popc")
+MMA(mma_s8, "m16n8k32.row.col.s32.s8.s8.s32")
+
+template <int KIND, int CHAINS>
+__global__ void chains(int* out, int iters, uint32_t seed) {
+  const uint32_t a[4] = {seed ^ threadIdx.x, seed * 3u, seed + 7u, ~seed};
+  const uint32_t b0 = seed * 11u + threadIdx.x, b1 = seed ^ 0x5555u;
+  int acc[CHAINS][4];
+  for (int c = 0; c < CHAINS; ++c)
+    for (int e = 0; e < 4; ++e) acc[c][e] = c;
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int c = 0; c < CHAINS; ++c) {
+      if (KIND == 0) mma_and(acc[c], a, b0, b1);
+      else if (KIND == 1) mma_xor(acc[c], a, b0, b1);
+      else mma_s8(acc[c], a, b0, b1);
+    }
+  int s = 0;
+  for (int c = 0; c < CHAINS; ++c)
+    for (int e = 0; e < 4; ++e) s += acc[c][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+template <int KIND>
+int run(int chains_n, int blocks, int threads, int iters, int* out) {
+  if (chains_n == 1) chains<KIND, 1><<<blocks, threads>>>(out, iters, 12345u);
+  else chains<KIND, 8><<<blocks, threads>>>(out, iters, 12345u);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mma_rates(int kind, int chains_n, int blocks, int threads, int iters, int* out) {
+  if (kind == 0) return run<0>(chains_n, blocks, threads, iters, out);
+  if (kind == 1) return run<1>(chains_n, blocks, threads, iters, out);
+  return run<2>(chains_n, blocks, threads, iters, out);
+}
+"""
+
+MMA_FORMS = ((0, "b1 and.popc m16n8k256"), (1, "b1 xor.popc m16n8k256"), (2, "s8 m16n8k32"))
+MMA_SHAPES = ((1, 1, 32), (8, 1, 32), (8, 1, 128), (8, 1, 256), (8, 1, 512), (8, 132, 256),
+          (8, 132, 512))
+
+
+
+def mma_rates() -> int:
+    """Issue rate and latency of the warp-level mma.sync forms a Hamming
+    distance can run on: m16n8k256 .b1 with .and.popc (csrc/hamming.cu's
+    path), m16n8k256 .b1 with .xor.popc (one product a distance, if native)
+    and m16n8k32 .s8 (the ±1 int8 product, csrc/bowassign.cu's path).  Each
+    form runs a loop of dependent products (one chain: latency) and of 8
+    independent chains in 1, 4, 8 and 16 warps of one block and in 132
+    blocks of 8 and 16 warps (throughput).  Prints cycles a product a warp
+    and products a clock per SM at the SM clock nvidia-smi reads, beside
+    the card's name and power limit.  The source is built with nvcc into
+    flvis_tpu_torch/_build/."""
+    import ctypes
+
+    from flvis_tpu_torch.ops.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, so = _build.BUILD_DIR / "mma_rates.cu", _build.BUILD_DIR / "libmma_rates.so"
+    cu.write_text(MMA_RATES_SOURCE)
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(so), str(cu)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.mma_rates.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out = torch.empty(132 * 512, dtype=torch.int32, device="cuda")
+    mhz = sm_clock_mhz()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    print(f"gpu: {smi}; SM clock {mhz:.0f} MHz (clocks.max.sm)")
+    iters = 2000
+    for kind, name in MMA_FORMS:
+        for n_chains, blocks, threads in MMA_SHAPES:
+            if lib.mma_rates(kind, n_chains, blocks, threads, 10, out.data_ptr()):
+                raise RuntimeError(f"{name}: launch failed")
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            lib.mma_rates(kind, n_chains, blocks, threads, iters, out.data_ptr())
+            e1.record()
+            e1.synchronize()
+            cycles = e0.elapsed_time(e1) * 1e-3 * mhz * 1e6
+            per_sm = iters * n_chains * (threads // 32) / cycles
+            print(f"{name}: {n_chains} chain(s) a warp, {blocks} block(s) of {threads // 32} "
+                  f"warps: {cycles / (iters * n_chains):.1f} cycles a product a warp, "
+                  f"{per_sm:.3f} products a clock per SM")
+    return 0
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--phases-of"] and len(args) == 2:
+        return run_phases_of(args[1])
+    if args and not (args[:1] == ["--parent"] and len(args) == 2 or args == ["--mma-rates"]):
+        print("usage: python3 chip_smoke.py [--parent DIR | --mma-rates]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if args == ["--mma-rates"]:
+        return mma_rates()
     from flvis_tpu_torch.ops import orb
     from flvis_tpu_torch.ops.kernels import _build
 
@@ -1396,7 +1695,7 @@ def main() -> int:
         kf_valid.append(v)
     table = [check_grad_blur(device), check_schur(cfg, cam, device), check_imu_chain(device),
              check_fastblur(img_l), check_sweep(img_l, img_r),
-             check_hamming(desc_l.contiguous(), desc_r.contiguous()),
+             check_hamming(desc_l.contiguous(), desc_r.contiguous(), kf_desc, kf_valid),
              check_bowassign(kf_desc, kf_valid, cfg), check_gather(img_l, cfg, device)]
     feed_readings(device)
     print(f"phase kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -1405,11 +1704,13 @@ def main() -> int:
     slice_launches = run_slice(cfg, scfg, cam, device)
     print(f"phase a, stereo slice: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    head_launches, _ = run_headline(cfg, scfg, cam, device)
+    head_launches, _, verify_b = run_headline(cfg, scfg, cam, device)
     print(f"phase b, headline: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    ms_launches = run_multiseq(cfg, scfg, cam, device)
+    ms_launches, verify_c = run_multiseq(cfg, scfg, cam, device)
     print(f"phase c, multi-sequence: {time.perf_counter() - t0:.1f} s")
+    if args:
+        compare_with_parent(args[1], {"b": verify_b, "c": verify_c})
 
     # Launches on the path each kernel belongs to: the slice for rows 1-2,
     # the headline for 3-6, the multi-sequence composition for 7-8.

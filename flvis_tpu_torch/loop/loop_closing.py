@@ -28,11 +28,11 @@ Two ways in, with the reference's semantics:
 Differences from the reference, by design:
   - Not ported: the mesh-sharded database, the loop/PGO devices, debug
     dumps and RGB-D depth lookup.
-  - No shape padding: the reference pads its ingest to blocks of {32, 8, 4}
-    keyframes and its verification to buckets of 8 pairs to keep XLA shapes
-    stable, then drops the padded results.  Every BoW row and every
-    verification is computed on its own, so the port ingests, transforms
-    and verifies only the real rows and pairs, with the same results.
+  - Ingest without shape padding: the reference pads its ingest to blocks
+    of {32, 8, 4} keyframes to keep XLA shapes stable, then drops the
+    padded rows; the port ingests and transforms only the real rows, with
+    the same results.  Verification runs in the reference's buckets of 8
+    pairs, each padded with its last pair, the padding dropped.
   - Random draws: the verification's PnP RANSAC scores (the reference's
     jax.random.PRNGKey(i·7919 + j), loop_closing.py:977,1062) come from
     `_verify_scores`, a torch.Generator seeded with i·7919 + j; the
@@ -55,11 +55,15 @@ from ..geometry import camera as cam_m, se3 as se3m, so3
 from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..ops import orb, pnp, stereo
+from ..ops.kernels import hamming
 from . import bow, pose_graph
 
 # Loop windows up to this many (padded) nodes take the dense PGO solve; the
 # reference switches to its banded solver above it (loop_closing.py:1108).
 _DENSE_MAX_NODES = 256
+# Candidate pairs verified together (the reference's 8-wide
+# _verify_device_batch buckets, loop_closing.py:964-985).
+VERIFY_BUCKET = 8
 
 
 def _ingest(img_l, img_r, cam: StereoCamera, num_features: int):
@@ -149,6 +153,9 @@ class LoopCloser:
                  vocab: Optional[bow.Vocabulary] = None, device="cuda"):
         self.cfg = cfg
         self.cam = cam
+        # The verification's PnP inlier threshold, 3 px in normalised units,
+        # read from the camera once (not on every bucket).
+        self._pnp_thr = 3.0 / float(cam.fx)
         self.vocab = vocab
         self.device = torch.device(device)
         dev = self.device
@@ -370,8 +377,15 @@ class LoopCloser:
                  for cand in (_gate_decision(row, lo, hi, self.cfg),) if cand is not None]
         if not cands:
             return None
-        stats = torch.stack([self._verify_device(i, j) for i, j in cands])
-        return ("verify", cands, stats)
+        # Buckets of VERIFY_BUCKET pairs, each padded with its last pair to
+        # the reference's fixed shape; the padding's rows are dropped (the
+        # reference's dispatch_verify).
+        stats = []
+        for b0 in range(0, len(cands), VERIFY_BUCKET):
+            bucket = cands[b0:b0 + VERIFY_BUCKET]
+            bucket = bucket + bucket[-1:] * (VERIFY_BUCKET - len(bucket))
+            stats.append(self._verify_device_batch([i for i, _ in bucket], [j for _, j in bucket]))
+        return ("verify", cands, torch.cat(stats)[:len(cands)])
 
     def pending_verify_arrays(self, handle):
         """The device statistics inside a dispatch_verify handle, or None."""
@@ -389,28 +403,47 @@ class LoopCloser:
                 for lc in (self._verify_accept(i, j, row),) if lc is not None]
 
     def _verify_device(self, i: int, j: int):
-        """Geometric verification of candidate pair (i, j) on the device:
-        mutual-ratio matches, PnP RANSAC from keyframe i's world points to
-        j's normalised pixels, and the accept-gate statistics.  Returns the
-        (11,) float32 row [T_ij.q, T_ij.t, n_match, n_inl, |Δt|, |Δlog R|]."""
+        """Geometric verification of candidate pair (i, j): a bucket of one.
+        Returns its (11,) float32 statistics row."""
+        return self._verify_device_batch([i], [j])[0]
+
+    def _verify_device_batch(self, iis, jjs):
+        """Geometric verification of the candidate pairs (iis[b], jjs[b]) on
+        the device, all at once (the reference's 8-wide vmapped
+        _verify_device_batch): their rows gathered from the resident store
+        (views stacked from the host lists, no host read), mutual-ratio
+        matches (the hamming kernel's match mode), PnP RANSAC from keyframe
+        i's world points to j's normalised pixels over every pair's
+        hypotheses together, and the accept-gate statistics.  Returns (B,
+        11) float32 rows [T_ij.q, T_ij.t, n_match, n_inl, |Δt|, |Δlog R|]."""
         cfg, cam = self.cfg, self.cam
-        valid_i = self.kf_kp_valid[i] & self.kf_pc_valid[i]
-        match_j, good = orb.mutual_ratio_match(self.kf_desc[i], self.kf_desc[j], valid_i,
-                                               self.kf_kp_valid[j], ratio=cfg.ratio_max)
-        T_wc_i = SE3(self.kf_q[i], self.kf_t[i])
-        pts_w = se3m.transform_points(T_wc_i, self.kf_pc[i])
-        uv_j = self.kf_uv[j][match_j]
-        xn = torch.stack([(uv_j[:, 0] - cam.cx) / cam.fx, (uv_j[:, 1] - cam.cy) / cam.fy], -1)
-        scores = _verify_scores(i, j, cfg.ransac_hypotheses, good.shape[0], self.device)
-        T_cj_w, _, n_inl = pnp.pnp_ransac(scores, pts_w, xn, good,
-                                          threshold_n=3.0 / float(cam.fx))
+
+        def rows(table, ks):
+            return torch.stack([table[k] for k in ks])
+
+        valid_i = rows(self.kf_kp_valid, iis) & rows(self.kf_pc_valid, iis)
+        match_j, good = hamming.mutual_ratio_match(
+            rows(self.kf_desc, iis), rows(self.kf_desc, jjs), valid_i,
+            rows(self.kf_kp_valid, jjs), ratio=cfg.ratio_max)[:2]
+        T_wc_i = SE3(rows(self.kf_q, iis), rows(self.kf_t, iis))
+        pts_w = se3m.transform_points(SE3(T_wc_i.q[:, None], T_wc_i.t[:, None]),
+                                      rows(self.kf_pc, iis))
+        uv_j = torch.gather(rows(self.kf_uv, jjs), 1, match_j[..., None].expand(-1, -1, 2))
+        xn = torch.stack([(uv_j[..., 0] - cam.cx) / cam.fx, (uv_j[..., 1] - cam.cy) / cam.fy], -1)
+        draws = {}
+        for p in zip(iis, jjs):
+            if p not in draws:
+                draws[p] = _verify_scores(*p, cfg.ransac_hypotheses, good.shape[1], self.device)
+        scores = torch.stack([draws[p] for p in zip(iis, jjs)])
+        T_cj_w, _, n_inl = pnp.pnp_ransac(scores, pts_w, xn, good, threshold_n=self._pnp_thr)
         T_wc_j_meas = se3m.inverse(T_cj_w)
-        delta = se3m.compose(se3m.inverse(SE3(self.kf_q[j], self.kf_t[j])), T_wc_j_meas)
+        delta = se3m.compose(se3m.inverse(SE3(rows(self.kf_q, jjs), rows(self.kf_t, jjs))),
+                             T_wc_j_meas)
         T_ij = se3m.compose(se3m.inverse(T_wc_i), T_wc_j_meas)
-        return torch.cat([T_ij.q, T_ij.t, torch.sum(good)[None].to(torch.float32),
-                          n_inl[None].to(torch.float32),
-                          torch.linalg.vector_norm(delta.t)[None],
-                          torch.linalg.vector_norm(so3.log(delta.q))[None]])
+        return torch.cat([T_ij.q, T_ij.t, torch.sum(good, dim=-1, keepdim=True).to(torch.float32),
+                          n_inl[:, None].to(torch.float32),
+                          torch.linalg.vector_norm(delta.t, dim=-1, keepdim=True),
+                          torch.linalg.vector_norm(so3.log(delta.q), dim=-1, keepdim=True)], -1)
 
     def _verify_accept(self, i: int, j: int, row) -> Optional[LoopClosure]:
         """Host accept gates over one fetched statistics row."""

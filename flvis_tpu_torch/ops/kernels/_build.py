@@ -47,6 +47,7 @@ _SIGNATURES = {
     "flvis_fast_score_nms_blur": [_P, _P, _P, _I, _I, _F, _I, _F, _P],
     "flvis_sweep_maps": [_P, _P, _P, _P, _P, _I, _I, _P],
     "flvis_hamming_matrix": [_P, _P, _P, _I, _I, _P],
+    "flvis_hamming_match": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "flvis_bow_tf": [_P, _P, _P, _P, _I, _I, _I, _P],
     "flvis_gather_windows": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _P, _L, _P, _I, _I, _I, _P],
     "flvis_gather_patches": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _L, _P, _I, _I, _P],

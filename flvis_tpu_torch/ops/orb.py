@@ -9,7 +9,8 @@ form:
   - the bf16 selection-matmul patch gather of `extract_patches_int(...,
     exact=False)` is the exact indexed gather of ops/image;
   - FAST + NMS + margin + blur go through ops/kernels/fastblur (the CUDA
-    kernel on the card) and the Hamming matrix through ops/kernels/hamming.
+    kernel on the card) and the Hamming matrix and the mutual-ratio matcher
+    through ops/kernels/hamming.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from . import image as imops
-from .features import stable_topk
+from .kernels import hamming
 from .kernels.fastblur import CIRCLE, fast_score_nms_blur
 from .kernels.hamming import hamming_matrix
 
@@ -152,15 +153,8 @@ def pack_pm1(pm1):
 def mutual_ratio_match(desc_a, desc_b, valid_a, valid_b, ratio: float = 0.75,
                        max_distance: int = 64):
     """Mutual-best kNN2 matching with the Lowe ratio test.  Returns
-    (idx_b_for_a (Na,), good (Na,))."""
-    d = hamming_matrix(desc_a, desc_b)
-    d = torch.where(valid_a[:, None] & valid_b[None, :], d, 512)
-    neg_top2, idx_top2 = stable_topk(-d, 2)
-    best_ab = idx_top2[:, 0]
-    d1 = -neg_top2[:, 0]
-    d2 = -neg_top2[:, 1]
-    best_ba = torch.argmin(d, dim=0)
-    mutual = best_ba[best_ab] == torch.arange(d.shape[0], device=d.device)
-    good = (valid_a & mutual & (d1 <= max_distance)
-            & (d1.to(torch.float32) < ratio * torch.clamp(d2, min=1).to(torch.float32)))
-    return best_ab, good
+    (idx_b_for_a (Na,), good (Na,)): a batch of one pair of
+    kernels.hamming.mutual_ratio_match."""
+    best_ab, good = hamming.mutual_ratio_match(desc_a[None], desc_b[None], valid_a[None],
+                                               valid_b[None], ratio, max_distance)[:2]
+    return best_ab[0], good[0]

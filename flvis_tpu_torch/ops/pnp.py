@@ -80,14 +80,33 @@ def _epnp_minimal(X, xn):
 def pnp_ransac(scores, pts_w, xn, valid, threshold_n: float = 0.01,
                sample_size: int = 6):
     """Prior-free pose from 3D-2D matches, one hypothesis per row of the
-    (M, N) uniform `scores`.  Returns (T_c_w, inliers (N,), num_inliers)."""
-    idx = ransac_ops.sample_minimal_sets(scores, valid, sample_size)
-    T = _epnp_minimal(pts_w[idx], xn[idx])
-    p_c = so3.rotate(T.q[:, None, :], pts_w[None, :, :]) + T.t[:, None, :]
+    (M, N) uniform `scores`.  Returns (T_c_w, inliers (N,), num_inliers).
+
+    With a leading pair axis — scores (B, M, N), pts_w (B, N, 3), xn
+    (B, N, 2), valid (B, N) — the B problems go through one EPnP over the
+    B·M hypotheses and one scoring, and the results gain that axis."""
+    if scores.dim() == 2:
+        T, inl, n = pnp_ransac(scores[None], pts_w[None], xn[None], valid[None], threshold_n,
+                               sample_size)
+        return SE3(T.q[0], T.t[0]), inl[0], n[0]
+    B, M, N = scores.shape
+    idx = ransac_ops.sample_minimal_sets(scores, valid, sample_size).reshape(B, M * sample_size, 1)
+
+    def sample(x):
+        return torch.gather(x, 1, idx.expand(-1, -1, x.shape[-1])).reshape(
+            B * M, sample_size, x.shape[-1])
+
+    T = _epnp_minimal(sample(pts_w), sample(xn))
+    q, t = T.q.reshape(B, M, 4), T.t.reshape(B, M, 3)
+    p_c = so3.rotate(q[:, :, None, :], pts_w[:, None, :, :]) + t[:, :, None, :]
     z = p_c[..., 2]
     zs = torch.where(torch.abs(z[..., None]) < 1e-6, 1e-6, z[..., None])
-    err = torch.linalg.vector_norm(p_c[..., :2] / zs - xn[None, :, :], dim=-1)
-    inl = (err < threshold_n) & (z > 0.05) & valid[None, :]
+    err = torch.linalg.vector_norm(p_c[..., :2] / zs - xn[:, None, :, :], dim=-1)
+    inl = (err < threshold_n) & (z > 0.05) & valid[:, None, :]
     counts = torch.sum(inl, dim=-1)
-    best = torch.argmax(counts)
-    return SE3(T.q[best], T.t[best]), inl[best], counts[best]
+    best = torch.argmax(counts, dim=-1)[:, None]
+
+    def pick(x):
+        return torch.take_along_dim(x, best.reshape((B, 1) + (1,) * (x.dim() - 2)), dim=1)[:, 0]
+
+    return SE3(pick(q), pick(t)), pick(inl), pick(counts)

@@ -15,10 +15,10 @@ from .features import stable_topk
 
 
 def sample_minimal_sets(scores, valid, sample_size: int):
-    """(M, k) indices of random valid points per hypothesis: the top-k of
-    uniform scores (M, N) with invalid slots at -inf (lowest index first
-    among ties, as lax.top_k)."""
-    scores = torch.where(valid[None, :], scores, -torch.inf)
+    """(..., M, k) indices of random valid points per hypothesis: the top-k
+    of uniform scores (..., M, N) with invalid slots of valid (..., N) at
+    -inf (lowest index first among ties, as lax.top_k)."""
+    scores = torch.where(valid[..., None, :], scores, -torch.inf)
     return stable_topk(scores, sample_size)[1]
 
 

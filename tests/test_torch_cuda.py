@@ -401,7 +401,7 @@ def test_sweep_kernel_flat_and_last_disparity(dev):
     assert not bool(got[2][:, 4 + 63:376 - 4][far == 63.5].any())
 
 
-@pytest.mark.parametrize("na,nb", [(1000, 1000), (17, 5)])
+@pytest.mark.parametrize("na,nb", [(1000, 1000), (17, 5), (130, 999)])
 def test_hamming_kernel_exact(dev, na, nb):
     from flvis_tpu_torch.ops.kernels import hamming
 
@@ -413,6 +413,80 @@ def test_hamming_kernel_exact(dev, na, nb):
     got = hamming.hamming_matrix(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, hamming.hamming_matrix_plain(a, b))
+    # The kernel reads words one at a time: rows that start 4 bytes past a
+    # 16-byte boundary are taken too.
+    a4 = torch.cat([a.new_zeros(1), a.flatten()])[1:].view(na, 8)
+    b4 = torch.cat([b.new_zeros(1), b.flatten()])[1:].view(nb, 8)
+    assert a4.data_ptr() % 16 and b4.data_ptr() % 16
+    assert torch.equal(hamming.hamming_matrix(a4, b4), got)
+
+
+def _match_inputs(rng, b, na, nb):
+    """B pairs of descriptors for the match mode: half of a's rows near
+    b's rows (3 bits flipped), b holding duplicate columns (ties in a row's
+    top 2 and in a column's argmin), a row equidistant from two columns
+    (d1 = d2), masked rows and columns, an all-invalid row and column."""
+    a = rng.integers(0, 2 ** 32, (b, na, 8), dtype=np.uint32)
+    bb = rng.integers(0, 2 ** 32, (b, nb, 8), dtype=np.uint32)
+    for p in range(b):
+        src = rng.permutation(nb)[: max(na // 2, 4)]
+        for r, s in enumerate(src[:na]):
+            a[p, r] = bb[p, s]
+            for f in rng.integers(0, 256, 3):
+                a[p, r, f // 32] ^= np.uint32(1 << (f % 32))
+        bb[p, nb - 1] = bb[p, src[0]]
+        if nb > 2:
+            bb[p, nb - 2] = bb[p, src[1]]
+        if na > 3 and nb > 4:
+            a[p, 3] = bb[p, src[3]]
+            bb[p, nb - 3] = bb[p, src[3]]
+            bb[p, nb - 3, 0] ^= np.uint32(1)
+            bb[p, src[3], 1] ^= np.uint32(1)
+        a[p, na // 2:na // 2 + 4] = a[p, 0]             # duplicate rows: ties down a column
+    va = rng.uniform(size=(b, na)) > 0.15
+    vb = rng.uniform(size=(b, nb)) > 0.15
+    va[:, 0] = vb[:, nb - 1] = True
+    va[-1, na - 1] = False
+    vb[-1, 0] = False
+    if b > 1:
+        va[1] = False                                   # a pair with no valid row
+
+    def t(x):
+        return torch.as_tensor(x.view(np.int32) if x.dtype == np.uint32 else x)
+
+    return t(a), t(bb), t(va), t(vb)
+
+
+MATCH_CASES = {"bucket8_1000": (8, 1000, 1000), "one_1000": (1, 1000, 1000),
+               "ragged_17x5": (3, 17, 5), "ragged_1000x37": (2, 1000, 37),
+               "ragged_37x1000": (2, 37, 1000), "two_columns": (2, 70, 2),
+               "wide_40x9000": (2, 40, 9000)}
+
+
+@pytest.mark.parametrize("case", list(MATCH_CASES))
+def test_hamming_match_kernel_exact(dev, case):
+    """The match mode against mutual_ratio_match_plain on the card, every
+    output bit for bit (ties, masks, all-invalid rows), one launch a call
+    that leaves its scratch (column keys, last-block tickets) as it found
+    it, and a repeat of the bucket giving the same outputs."""
+    from flvis_tpu_torch.ops.kernels import hamming
+
+    b, na, nb = MATCH_CASES[case]
+    args = [x.to(dev) for x in _match_inputs(np.random.default_rng(na + nb), b, na, nb)]
+    before = hamming.mutual_ratio_match_kernel.launches
+    got = hamming.mutual_ratio_match(*args, ratio=0.75, max_distance=64)
+    again = hamming.mutual_ratio_match(*args, ratio=0.75, max_distance=64)
+    ref = hamming.mutual_ratio_match_plain(*args, ratio=0.75, max_distance=64)
+    torch.cuda.synchronize()
+    assert hamming.mutual_ratio_match_kernel.launches == before + 2
+    colkey, tickets = hamming._SCRATCH[(dev.index, torch.cuda.current_stream(dev).cuda_stream)]
+    assert not bool(tickets.any()) and bool((colkey == torch.iinfo(torch.int32).max).all())
+    for name, g, a, r in zip(("best_ab", "good", "d1", "d2", "best_ba"), got, again, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert torch.equal(g, r), name
+        assert torch.equal(g, a), name
+    d1, d2 = ref[2], ref[3]
+    assert bool(((d1 == d2) & (d1 < 512)).any()) or nb == 2
 
 
 def test_new_kernel_wrappers_refuse_bad_input(dev):
@@ -430,6 +504,30 @@ def test_new_kernel_wrappers_refuse_bad_input(dev):
     with pytest.raises(ValueError, match=r"\(N, 8\)"):
         hamming.hamming_matrix(torch.zeros((4, 4), dtype=torch.int32, device=dev),
                                torch.zeros((4, 8), dtype=torch.int32, device=dev))
+    d3 = torch.zeros((2, 10, 8), dtype=torch.int32, device=dev)
+    v2 = torch.ones((2, 10), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        hamming.mutual_ratio_match_kernel(d3.cpu(), d3.cpu(), v2.cpu(), v2.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        hamming.mutual_ratio_match(d3.float(), d3, v2, v2)
+    with pytest.raises(ValueError, match=r"\(B, N, 8\)"):
+        hamming.mutual_ratio_match(d3[0], d3[0], v2[0], v2[0])
+    with pytest.raises(ValueError, match="bool"):
+        hamming.mutual_ratio_match(d3, d3, v2.to(torch.uint8), v2)
+    with pytest.raises(ValueError, match="valid_b"):
+        hamming.mutual_ratio_match(d3, d3, v2, v2[:, :5])
+    with pytest.raises(ValueError, match="pairs"):
+        hamming.mutual_ratio_match(d3, d3[:1], v2, v2[:1])
+    with pytest.raises(ValueError, match="Nb"):
+        hamming.mutual_ratio_match(d3, d3[:, :1].contiguous(), v2, v2[:, :1].contiguous())
+    d3_4 = torch.zeros(d3.numel() + 1, dtype=torch.int32, device=dev)[1:].view(2, 10, 8)
+    assert d3_4.is_contiguous() and d3_4.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        hamming.mutual_ratio_match(d3, d3_4, v2, v2)
+    big = torch.zeros((1, 65536, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="Na"):
+        hamming.mutual_ratio_match(big, d3[:1], torch.ones((1, 65536), dtype=torch.bool,
+                                                           device=dev), v2[:1])
     with pytest.raises(ValueError, match="expected q0"):
         imu_chain.attitude_chain(torch.zeros(4, device=dev), torch.zeros((3, 4), device=dev),
                                  torch.zeros((2, 3), device=dev), torch.zeros(3, device=dev))
@@ -452,7 +550,8 @@ def test_new_kernel_wrappers_refuse_bad_input(dev):
 def test_vio_loop_path_launches_its_kernels(dev):
     """The stereo + IMU + loop path at the small config of
     tests/test_torch_runner.py: imu_chain on every IMU-initialised frame,
-    fastblur and sweep on every keyframe, hamming on every verification."""
+    fastblur and sweep on every keyframe, hamming's match mode on every
+    bucket of verifications."""
     from flvis_tpu_torch.config import BackendConfig, FrontendConfig, LoopConfig, SystemConfig
     from flvis_tpu_torch.geometry import camera
     from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig, imu_from_trajectory
@@ -481,7 +580,7 @@ def test_vio_loop_path_launches_its_kernels(dev):
         accs.append(acc[m]); gyros.append(gyro[m]); imuts.append(t_imu[m])
         prev = ft
     kernels = (imu_chain.attitude_chain_kernel, fastblur.fast_score_nms_blur_kernel,
-               sweep.sweep_maps_kernel, hamming.hamming_matrix_kernel)
+               sweep.sweep_maps_kernel, hamming.mutual_ratio_match_kernel)
     before = [k.launches for k in kernels]
     slam = SlamSystem(cfg, cam, device=dev, use_imu=True, use_loop=True)
     out = slam.process_frames_vio(np.stack([f[0] for f in frames]),
@@ -494,7 +593,9 @@ def test_vio_loop_path_launches_its_kernels(dev):
     assert (out.status[1:] == 1).all()
     assert d[0] >= init_frames > 0
     assert d[1] >= n_kf and d[2] >= n_kf and n_kf == slam.loop_closer.count
-    assert len(slam.loop_closer.closures) >= 1 and d[3] >= len(slam.loop_closer.closures)
+    # The match mode: one launch a bucket of up to 8 verified pairs.
+    n_cl = len(slam.loop_closer.closures)
+    assert n_cl >= 1 and d[3] >= -(-n_cl // 8)
 
 
 @pytest.mark.parametrize("shape,size,pad,n", [
@@ -869,3 +970,96 @@ def test_loop_composition_repeats_bit_for_bit(dev):
     assert torch.equal(a.T_map_odom.t, b.T_map_odom.t)
     assert torch.equal(a.kf_q, b.kf_q) and torch.equal(a.kf_t, b.kf_t)
     assert torch.equal(a.bow_db, b.bow_db)
+
+
+def _verify_store(dev, K=10, F=1000, seed=5):
+    """A LoopCloser (LoopConfig() widths: 1000 features, 128 hypotheses) on
+    the card whose store holds K keyframes over one set of F world points:
+    keyframe k at x = 0.1·k with a small yaw, its features a permutation of
+    the points with 4 descriptor bits flipped, 15 % outliers, masks; node
+    poses with a drift of 0.01·k in y."""
+    from flvis_tpu_torch.config import LoopConfig
+    from flvis_tpu_torch.geometry import camera
+    from flvis_tpu_torch.loop import loop_closing
+
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy = 458.0, 458.0, 376.0, 240.0
+    lc = loop_closing.LoopCloser(LoopConfig(max_keyframes=K),
+                                 camera.make(fx, fy, cx, cy, 0.11, width=752, height=480,
+                                             device=dev), device=dev)
+    X = rng.uniform([-3, -2, 4], [3.5, 2, 10], (F, 3))
+    base = rng.integers(0, 2 ** 32, (F, 8), dtype=np.uint32)
+    for k in range(K):
+        yaw = 0.02 * k
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0], [-np.sin(yaw), 0, np.cos(yaw)]])
+        C = np.array([0.1 * k, 0.0, 0.0])
+        perm = rng.permutation(F)
+        pc = (X[perm] - C) @ R
+        uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], -1)
+        d = base[perm].copy()
+        for r, f in enumerate(rng.integers(0, 256, (F, 4))):
+            for b in f:
+                d[r, b // 32] ^= np.uint32(1 << (b % 32))
+        out = rng.uniform(size=F) < 0.15
+        d[out] = rng.integers(0, 2 ** 32, (int(out.sum()), 8), dtype=np.uint32)
+
+        def put(name, x, dt=torch.float32):
+            getattr(lc, name)[k] = torch.as_tensor(x, dtype=dt, device=dev)
+
+        put("kf_desc", d.view(np.int32), torch.int32)
+        put("kf_kp_valid", rng.uniform(size=F) > 0.05, torch.bool)
+        put("kf_pc_valid", rng.uniform(size=F) > 0.1, torch.bool)
+        put("kf_pc", pc)
+        put("kf_uv", uv)
+        put("kf_q", [np.cos(yaw / 2), 0.0, np.sin(yaw / 2), 0.0])
+        put("kf_t", C + [0.0, 0.01 * k, 0.0])
+    lc.count = K
+    return lc
+
+
+VERIFY_PAIRS = [(0, 5), (1, 6), (2, 7), (3, 8), (0, 9)]
+
+
+def test_verify_device_batch_on_card_matches_per_pair(dev):
+    """A bucket padded to 8 with its last pair through _verify_device_batch
+    against each pair's own _verify_device (a bucket of one): n_match and
+    n_inl exact, the pose and gate statistics within 1e-5."""
+    lc = _verify_store(dev)
+    bucket = VERIFY_PAIRS + VERIFY_PAIRS[-1:] * 3
+    got = lc._verify_device_batch([i for i, _ in bucket], [j for _, j in bucket]).cpu()
+    ref = torch.stack([lc._verify_device(i, j) for i, j in bucket]).cpu()
+    assert got.shape == (8, 11)
+    assert torch.equal(got[:, 7:9], ref[:, 7:9])
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert (got[:5, 7] >= 100).all() and (got[:5, 8] >= 0.5 * got[:5, 7]).all()
+
+
+def test_verify_bucket_one_launch_no_host_sync(dev):
+    """One bucket of 8 pairs: one hamming launch (the match mode, none of
+    the matrix mode) and no synchronising CUDA operation, under
+    torch.cuda.set_sync_debug_mode("error"); dispatch_verify makes one
+    bucket call per 8 candidates."""
+    from flvis_tpu_torch.ops.kernels import hamming
+
+    lc = _verify_store(dev)
+    bucket = VERIFY_PAIRS + VERIFY_PAIRS[-1:] * 3
+    iis, jjs = [i for i, _ in bucket], [j for _, j in bucket]
+    lc._verify_device_batch(iis, jjs)                  # warm up: library load, cuBLAS handles
+    torch.cuda.synchronize()
+    before = (hamming.mutual_ratio_match_kernel.launches, hamming.hamming_matrix_kernel.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lc._verify_device_batch(iis, jjs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (hamming.mutual_ratio_match_kernel.launches - before[0],
+            hamming.hamming_matrix_kernel.launches - before[1]) == (1, 0)
+    calls = []
+    real = lc._verify_device_batch
+    lc._verify_device_batch = lambda a, b: calls.append(len(a)) or real(a, b)
+    cands = [(i, j) for i in range(4) for j in range(5, 10)][:11]
+    rows = np.asarray([[i, 1.0, 10.0, 0.0] for i, _ in cands], np.float32)
+    ks = [j for _, j in cands]
+    handle = lc.dispatch_verify(("rows", ks, [0] * 11, [10] * 11, None), rows)
+    assert calls == [8, 8] and handle[1] == cands and tuple(handle[2].shape) == (11, 11)
