@@ -18,15 +18,30 @@ paths of the port at the EuRoC-sized bench configuration:
      sequence with trajectory-consistent IMU, at the default LoopConfig
      widths (1000 ORB features, 4096 words, 2048 keyframe slots), the loop
      node resolving one chunk late as in the reference's chunked replay;
+     (a) and (b) each run twice in turn on the same frames and draws: the
+     captured frame step (one CUDA-graph replay a frame, the path a user
+     calls) and the eager composition (a Python loop over
+     runner._fused_*_step); both print frames/s, the device busy share,
+     host syncs a frame in a chunk's step and device kernel events a frame,
+     the captured run also its graph's kernel nodes and IF bodies run a
+     replay and its capture time, and the run fails unless both give the
+     same outputs, BA costs, closures and ATE bit for bit; between them,
+     the rare branches (blank frames: FAIL and re-init; starved frames: the
+     PnP rescue) run inside the graph against the eager composition;
   c. the multi-sequence composition — MultiSeqSlam(num_seqs=8,
      use_imu=True, use_loop=True, ba_every=2, pipelined=True) over 8 chunks
      of 8 frames of a 64-frame out-and-back per sequence.
 
 Each path runs with every kernel's launch count set to 0 just before it and
-read just after; the run fails unless every frame tracked, the trajectory
-error is in bound, the loop paths closed loops, each kernel of each path
-launched on it, and PGO on the headline's last pose graph, run twice
-more, gives the headline's own bits.  Phases b and c print the loop
+read just after (a captured step is captured before that, its warm-up's
+launches printed on a line of their own).  A replay runs no kernel
+wrapper, so the launches of the captured step's kernels (grad_blur,
+schur_step, imu_chain, gather) are read from the device: their events in
+the profiled chunk's replays, by kernel name.  The run fails unless every
+frame tracked, the trajectory error is in bound, the loop paths closed
+loops, each kernel of each path launched on it (the captured step's inside
+its replays), and PGO on the headline's last pose graph, run twice more,
+gives the headline's own bits.  Phases b and c print the loop
 node's verification per verified pair (synced ms, device events) and the
 accepted closures; with --parent DIR, phases b and c of the port in DIR (a
 `git archive` of another commit, run in a subprocess with this script's
@@ -58,6 +73,7 @@ IMU_SUM_TOL = 1e-5                    # the fused feed's pos, vel: FMA vs cumsum
 FAST_TOL = 1e-3                       # sum-order rounding of FAST scores and the blur
 N_FRAMES = 64
 WARM_FRAMES = 16
+SYNC_FRAMES = 8                       # the chunk whose step's host syncs are counted
 LOOP_FRAMES = 256                     # bench.py:368-380, 4 chunks of 64
 CHUNK = 64
 PROFILE_FRAMES = 8
@@ -94,6 +110,9 @@ FAST_TY, FAST_TX, FAST_NT = 11, 126, 128
 # and the product 7, |q|² 4, the scaling 1) and one rsqrt on the
 # special-function unit (~16 cycles).
 CHAIN_DEP_CYCLES = 25 * 4 + 16
+
+
+SMI = "card not read yet"            # nvidia-smi's name and power limit, set by main()
 
 
 def fail(msg: str) -> None:
@@ -951,60 +970,307 @@ def read_counts():
     return {name: sum(fn.launches for fn in fns) for name, fns in kernels().items()}
 
 
+# The kernels a captured frame step launches inside its graph, and the
+# __global__ each launch runs once (schur_step's second is its back-substitution).
+IN_GRAPH = ("grad_blur", "schur_step", "imu_chain", "gather")
+LAUNCH_GLOBALS = {k: v[:1] if k == "schur_step" else v for k, v in KERNEL_FNS.items()}
+
+
+def replay_launches(avg, before) -> dict:
+    """{kernel: launches of a captured step's replays in a profiled window}:
+    its device events in the window's profile (key averages `avg`), less
+    the launches its wrappers counted in the window (`before`: read_counts()
+    at its start), which ran outside the graph.  A replay runs no wrapper,
+    so this is the only count of a replay's launches."""
+    after = read_counts()
+    events = {k: sum(e.count for e in avg if e.device_type.name == "CUDA"
+                     and any(f in e.key for f in fns)) for k, fns in LAUNCH_GLOBALS.items()}
+    return {k: events[k] - (after[k] - before[k]) for k in events}
+
+
+def capture_first(slam, kind, label, imgs0, imgs1) -> None:
+    """Capture slam's `kind` step before its main path (on a frame of the
+    path's shapes; each chunk copies the state in), and print what the
+    capture's eager warm-up launched and its wrappers' calls during the
+    capture, on a line of their own: the main path's counts start after
+    them.  A tree without a captured step captures nothing."""
+    if not hasattr(slam, "_captured_step"):
+        return
+    dev = slam.device
+    xs = [torch.as_tensor(imgs0[:1], device=dev), torch.as_tensor(imgs1[:1], device=dev)]
+    if kind == "vio":
+        xs += [torch.zeros(1, device=dev), torch.zeros((1, 16, 3), device=dev),
+               torch.zeros((1, 16, 3), device=dev), torch.zeros((1, 16), device=dev),
+               torch.zeros((1, 16), dtype=torch.bool, device=dev)]
+    reset_counts()
+    st = slam._captured_step(kind, tuple(xs)).step
+    torch.cuda.synchronize()
+    print(f"{label} capture, before the main path: warm-up {st.seconds['warmup']:.2f} s "
+          f"({st.WARMUP} eager steps, both sides of every cond), capture "
+          f"{st.seconds['capture']:.2f} s; launches counted by its wrappers (warm-up launches "
+          f"and capture calls, not the main path's): {read_counts()}")
+
+
+def path_launches(counted, replayed, captured: bool) -> dict:
+    """A path's launches: its wrappers' counts over the path and, for a
+    captured step, its replays' launches in the profiled window
+    (replay_launches; the other replays are not traced)."""
+    if not captured:
+        return dict(counted)
+    return {k: counted[k] + (replayed[k] if k in IN_GRAPH else 0) for k in counted}
+
+
+def launch_line(label, counted, replayed, captured: bool, profiled) -> str:
+    if not captured:
+        return f"{label} launches: {counted}"
+    return (f"{label} launches counted by the kernel wrappers over the main path (outside the "
+            f"graph): {counted}; launched by the captured step's replays, from the device "
+            f"events of the profiled frames {profiled}: { {k: replayed[k] for k in IN_GRAPH} }")
+
+
+def check_in_graph(label, replayed, names) -> None:
+    """Fail unless the captured step's replays launched each of `names` in
+    the profiled window."""
+    for k in names:
+        if replayed[k] < 1:
+            fail(f"{label}: the captured step's replays launched no {k} in the profiled frames")
+
+
 def ate(C_est, C_gt):
     return float(np.sqrt(np.mean(np.sum((C_est - C_gt) ** 2, axis=-1))))
 
 
-def run_slice(cfg, scfg, cam, device):
-    """The stereo slice: SlamSystem.process_frames over a rendered orbit."""
+def use_eager_chunks(slam):
+    """Step slam's chunks through the eager composition — the Python loop
+    over runner._fused_*_step (runner.run_chunk_eager) — instead of its
+    captured graph, on the same draws: the reference run a captured run is
+    held to."""
+    slam._run_chunk = slam._run_chunk_eager
+
+
+def count_chunk_syncs(slam, call: int, out: dict):
+    """Count the host syncs of slam's `call`-th chunk step (its frames from
+    inputs to outputs; the chunk end's fetch and loop node come after it)
+    into out["syncs"]."""
+    real = slam._run_chunk
+    calls = [0]
+
+    def run(*a, **kw):
+        calls[0] += 1
+        if calls[0] != call:
+            return real(*a, **kw)
+        res = []
+        out["syncs"] = host_syncs(lambda: res.append(real(*a, **kw)))
+        return res[0]
+
+    slam._run_chunk = run
+
+
+def profile_window(run):
+    """run() under torch.profiler: (wall ms, device kernel ms, device kernel
+    events, the profile's key averages)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        run()
+        wall = 1000.0 * (time.perf_counter() - t0)
+    avg = p.key_averages()
+    dev_ms = sum(e.self_device_time_total for e in avg if e.device_type.name == "CUDA") / 1000.0
+    n_events = sum(e.count for e in avg if e.device_type.name == "CUDA")
+    return wall, dev_ms, n_events, avg
+
+
+def graph_report(slam, label) -> dict:
+    """Print and return the captured steps' readings: warm-up and capture
+    seconds, the graph's nodes, kernel nodes run and IF bodies run a replay,
+    and each cond's taken counts (true, false)."""
+    out = {}
+    for kind, cap in getattr(slam, "_captured", {}).items():
+        st = cap.step
+        nodes, bodies = st.node_stats()
+        taken = st.taken_by_name()
+        out[kind] = {"kernel_nodes": nodes, "if_bodies": bodies, "taken": taken,
+                     "replays": st.replays, **st.seconds}
+        print(f"{label} captured {kind} step: warm-up {st.seconds['warmup']:.2f} s, capture "
+              f"{st.seconds['capture']:.2f} s (once); graph top level {st.top_nodes}; "
+              f"{len(st.sites)} conds (IF bodies' kernel nodes true/false: "
+              f"{[(x['name'], x['nodes'][0]['kernel'], x['nodes'][1]['kernel']) for x in st.sites]}"
+              f"); a replay ran {nodes:.1f} kernel nodes and {bodies:.2f} IF bodies over "
+              f"{st.replays} replays; taken (true, false) {taken} [{SMI}]")
+    return out
+
+
+def frame_fields(outs):
+    """The host FrameOutputs of a run's chunks as {field: array}."""
+    f = {k: np.concatenate([getattr(o, k) for o in outs])
+         for k in ("status", "is_keyframe", "reset_backend", "num_inliers", "mean_reproj_err")}
+    f["q"] = np.concatenate([o.T_c_w.q for o in outs])
+    f["t"] = np.concatenate([o.T_c_w.t for o in outs])
+    return f
+
+
+def compare_runs(label, cap, eag) -> None:
+    """Fail unless the captured and the eager run gave the same statuses,
+    keyframes, reset flags, inlier counts, reprojection errors, poses and BA
+    costs, bit for bit (the same kernels in the same order on the same
+    draws)."""
+    a, b = frame_fields(cap["outs"]), frame_fields(eag["outs"])
+    diff = [k for k in a if not np.array_equal(a[k], b[k])]
+    if cap["costs"] != eag["costs"]:
+        diff.append("ba_costs")
+    print(f"{label}: captured vs eager over {len(a['status'])} frames, {len(cap['costs'])} BA "
+          f"costs: {'bit-equal' if not diff else 'DIFFERENT in ' + ', '.join(diff)}")
+    if diff:
+        fail(f"{label}: the captured and the eager run differ in {diff}")
+
+
+def phase_line(label, r, frames_s) -> str:
+    return (f"{label}: {r['fps']:.2f} frames/s over frames {frames_s}; device busy "
+            f"{r['busy']:.3f}; {r['syncs_per_frame']:.2f} host syncs a frame in a chunk's step "
+            f"(frames {r['sync_frames']}, the chunk end apart); {r['events_per_frame']:.0f} "
+            f"device kernel events a frame (profiled frames {r['profiled']}) [{SMI}]")
+
+
+SLICE_BOUNDS = (0, WARM_FRAMES, WARM_FRAMES + SYNC_FRAMES,
+                WARM_FRAMES + SYNC_FRAMES + PROFILE_FRAMES, N_FRAMES)
+
+
+def run_slice(cfg, scfg, cam, device, eager: bool = False):
+    """The stereo slice: SlamSystem.process_frames over a rendered orbit —
+    the captured step, or with `eager` the eager composition on the same
+    frames and draws.  Chunks: the first (the capture), one whose step's
+    host syncs are counted, one profiled, the timed rest."""
     from flvis_tpu_torch.io.synthetic import PlanarScene, orbit_trajectory
     from flvis_tpu_torch.pipeline.runner import SlamSystem
 
+    label = "slice eager" if eager else "slice"
     scene = PlanarScene(scfg, plane_depth=8.0, seed=0)
     poses = orbit_trajectory(N_FRAMES, step=0.02)
     frames = [scene.render(R, t) for (R, t) in poses]
     imgs0 = np.stack([u8(f[0]) for f in frames])
     imgs1 = np.stack([u8(f[1]) for f in frames])
     slam = SlamSystem(cfg, cam, device=device, seed=0)
+    if eager:
+        use_eager_chunks(slam)
+    else:
+        capture_first(slam, "stereo", label, imgs0, imgs1)
+    syncs = {}
+    count_chunk_syncs(slam, 2, syncs)
     reset_counts()
-    outs = [slam.process_frames(imgs0[:WARM_FRAMES], imgs1[:WARM_FRAMES])]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs.append(slam.process_frames(imgs0[WARM_FRAMES:], imgs1[WARM_FRAMES:]))
-    torch.cuda.synchronize()
-    fps = (N_FRAMES - WARM_FRAMES) / (time.perf_counter() - t0)
-    launches = read_counts()
+    outs, times = [], []
+    b = SLICE_BOUNDS
+    for k, (a, c) in enumerate(zip(b[:-1], b[1:])):
+        def run(a=a, c=c):
+            outs.append(slam.process_frames(imgs0[a:c], imgs1[a:c]))
+            torch.cuda.synchronize()
+
+        torch.cuda.synchronize()
+        if k == 2:
+            c0 = read_counts()
+            _, dev_ms, n_events, avg = profile_window(run)
+            replayed = replay_launches(avg, c0)
+            continue
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    counted = read_counts()
+    captured = bool(getattr(slam, "_captured", None))
+    launches = path_launches(counted, replayed, captured)
+    timed = b[-1] - b[-2]
+    r = {"outs": outs, "costs": list(slam.ba_costs), "fps": timed / times[-1],
+         "first_chunk_s": times[0], "syncs_per_frame": syncs["syncs"] / SYNC_FRAMES,
+         "sync_frames": f"{b[1]}..{b[2] - 1}", "profiled": f"{b[2]}..{b[3] - 1}",
+         "events_per_frame": n_events / PROFILE_FRAMES, "launches": launches}
+    r["busy"] = dev_ms / PROFILE_FRAMES / (1000.0 * times[-1] / timed)
 
     status = np.concatenate([o.status for o in outs])
     n_kf = int(np.concatenate([o.is_keyframe for o in outs]).sum())
     C_est = slam.trajectory_cam_centers()
     err = ate(C_est, np.asarray([-R.T @ t for (R, t) in poses]))
     bound_m = 0.02 * 0.02 * N_FRAMES + 0.01        # tests/test_tracker.py:97
-    print(f"slice: {N_FRAMES} frames, {n_kf} keyframes, statuses {np.bincount(status)}, "
+    print(f"{label}: {N_FRAMES} frames, {n_kf} keyframes, statuses {np.bincount(status)}, "
           f"ATE {err:.5f} m (bound {bound_m:.5f}), {slam.n_valid_corrections} valid BA "
-          f"corrections, {fps:.2f} frames/s over frames {WARM_FRAMES}..{N_FRAMES - 1}")
-    print(f"slice launches: {launches}")
+          f"corrections; first chunk (frames 0..{b[1] - 1}) {times[0]:.2f} s")
+    print(phase_line(label, r, f"{b[-2]}..{b[-1] - 1}"))
+    r["graph"] = graph_report(slam, label)
+    print(launch_line(label, counted, replayed, captured, r["profiled"]))
     if not np.all(status[1:] == 1):
-        fail(f"slice frames not TRACKING: {status.tolist()}")
+        fail(f"{label} frames not TRACKING: {status.tolist()}")
     if not np.isfinite(C_est).all() or C_est.shape != (N_FRAMES, 3):
-        fail("slice trajectory not finite / wrong shape")
+        fail(f"{label} trajectory not finite / wrong shape")
     if not err < bound_m:
-        fail(f"slice ATE {err} over bound {bound_m}")
+        fail(f"{label} ATE {err} over bound {bound_m}")
     if slam.n_valid_corrections < 1:
-        fail("no valid BA correction")
-    if launches["grad_blur"] != 3 * N_FRAMES:
-        fail(f"grad_blur launched {launches['grad_blur']} times, expected {3 * N_FRAMES}")
-    if launches["schur_step"] < 1:
-        fail("schur_step never launched on the slice")
-    from flvis_tpu_torch.backend import window_ba
+        fail(f"{label}: no valid BA correction")
+    if eager:
+        # The pyramid runs once a frame, before any cond: 3 levels a frame.
+        if counted["grad_blur"] != 3 * N_FRAMES:
+            fail(f"{label}: grad_blur launched {counted['grad_blur']} times, expected "
+                 f"{3 * N_FRAMES}")
+        if counted["schur_step"] < 1:
+            fail(f"schur_step never launched on the {label}")
+    else:
+        check_in_graph(label, replayed, ("grad_blur", "schur_step"))
+        # The whole frame step is in the graph: no wrapper of its kernels ran.
+        if counted["grad_blur"] or counted["schur_step"]:
+            fail(f"{label}: grad_blur or schur_step launched outside the graph: {counted}")
+        print(f"{label}: grad_blur launched {replayed['grad_blur']} times in the "
+              f"{PROFILE_FRAMES} profiled replays (3 a frame: {3 * PROFILE_FRAMES})")
+    if not eager:
+        from flvis_tpu_torch.backend import window_ba
 
-    t0 = time.perf_counter()
-    for _ in range(5):
-        res = window_ba.optimize(cfg.backend, cam, slam.ba_state)
-    torch.cuda.synchronize()
-    print(f"window BA {1000.0 * (time.perf_counter() - t0) / 5:.2f} ms per keyframe "
-          f"(optimize on the final window, cost {float(res.cost):.4f})")
-    return launches
+        t0 = time.perf_counter()
+        for _ in range(5):
+            res = window_ba.optimize(cfg.backend, cam, slam.ba_state)
+        torch.cuda.synchronize()
+        print(f"window BA {1000.0 * (time.perf_counter() - t0) / 5:.2f} ms per keyframe "
+              f"(optimize on the final window, eager, cost {float(res.cost):.4f})")
+    return r
+
+
+def check_rare_branches(cfg, scfg, cam, device) -> None:
+    """Both rare branches inside the graph against the eager composition:
+    two blank frames (the first escaped, its starved BA taking the PnP
+    rescue; the second FAIL; the next frame re-initialises through the
+    status cond's init side, with a backend reset), and, with min_inliers
+    above the slot count, the PnP rescue on real matches at every tracking
+    frame.  Outputs and BA costs bit-equal; the taken counts show the
+    sides."""
+    import dataclasses
+
+    from flvis_tpu_torch.io.synthetic import PlanarScene, orbit_trajectory
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    n = 16
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=0)
+    frames = [scene.render(R, t) for (R, t) in orbit_trajectory(n, step=0.02)]
+    starved = cfg.replace(frontend=dataclasses.replace(
+        cfg.frontend, min_inliers=cfg.frontend.num_slots + 1))
+    for name, ccfg, blank in (("blank frames", cfg, (6, 7)), ("starved frames", starved, ())):
+        imgs0 = np.stack([u8(f[0]) for f in frames])
+        imgs1 = np.stack([u8(f[1]) for f in frames])
+        imgs0[list(blank)] = 0
+        imgs1[list(blank)] = 0
+        runs = []
+        for eager in (False, True):
+            slam = SlamSystem(ccfg, cam, device=device, seed=0)
+            if eager:
+                use_eager_chunks(slam)
+            runs.append({"outs": [slam.process_frames(imgs0, imgs1)],
+                         "costs": list(slam.ba_costs), "slam": slam})
+        compare_runs(f"rare branches, {name}", runs[0], runs[1])
+        st = runs[0]["slam"]._captured["stereo"].step
+        taken = st.taken_by_name()
+        status = runs[0]["outs"][0].status
+        print(f"rare branches, {name}: statuses {status.tolist()}; taken (true, false) "
+              f"{taken} [{SMI}]")
+        rescued, inits = taken["pnp_rescue"][0], taken["status"][1]
+        if name == "blank frames" and not (inits >= 2 and rescued >= 1
+                                           and status[blank[1]] == 2):
+            fail(f"rare branches, blank frames: no FAIL and re-init inside the graph ({taken})")
+        if name == "starved frames" and rescued < 2:
+            fail(f"rare branches, starved frames: the PnP rescue ran {rescued} times")
 
 
 class StageTimer:
@@ -1193,30 +1459,48 @@ def wrap_frame_stages(timer):
                    probe_every=16 if name == "imu_feed_batch" else 0)
 
 
-def run_headline(cfg, scfg, cam, device):
+HEADLINE_BOUNDS = (0, CHUNK, CHUNK + SYNC_FRAMES, 2 * CHUNK, 2 * CHUNK + PROFILE_FRAMES,
+                   3 * CHUNK, LOOP_FRAMES)
+
+
+def run_headline(cfg, scfg, cam, device, eager: bool = False):
     """SlamSystem(use_imu=True, use_loop=True).process_frames_vio over the
     loop-event sequence, the loop node resolving one chunk late, then
-    flush_loop; returns the launch counts of the run, the device busy share
-    and the verification summary."""
+    flush_loop — the captured step, or with `eager` the eager composition
+    on the same frames and draws (a tree without a captured step runs its
+    own).  Chunks (HEADLINE_BOUNDS): the first (the capture), one whose
+    step's host syncs are counted, timed ones, a profiled one in the revisit
+    leg.  Returns the run's readings: outputs, BA costs, closures, ATE,
+    launches, frames/s, busy share, syncs and events a frame, the
+    verification summary."""
     from flvis_tpu_torch.geometry import se3
     from flvis_tpu_torch.pipeline.runner import SlamSystem
 
+    label = "headline eager" if eager else "headline"
     poses, imgs0, imgs1, frame_t, accs, gyros, imuts, path = loop_sequence(scfg)
     slam = SlamSystem(cfg, cam, device=device, seed=0, T_i_c=se3.identity(device=device),
                       use_imu=True, use_loop=True)
+    if eager:
+        use_eager_chunks(slam)
+    else:
+        capture_first(slam, "vio", label, imgs0, imgs1)
     lc = slam.loop_closer
     timer = StageTimer()
-    wrap_frame_stages(timer)
     accepted = []
     wrap_loop_node(timer, lc, accepted)
     pgo_calls = record_pgo(timer)
+    syncs = {}
+    count_chunk_syncs(slam, 2, syncs)
     reset_counts()
     t0 = time.perf_counter()
-    outs, plain_s = [], 0.0
-    p0 = 2 * CHUNK                      # a profiled window in the revisit leg
-    bounds = [0, CHUNK, p0, p0 + PROFILE_FRAMES, 3 * CHUNK, LOOP_FRAMES]
-    for a, b in zip(bounds[:-1], bounds[1:]):
-        sl = slice(a, b)
+    outs, plain_s, first_s, staged = [], 0.0, 0.0, 0.0
+    b = HEADLINE_BOUNDS
+
+    def staged_ms():
+        return sum(v for k, v in timer.ms.items() if k not in NESTED)
+
+    for k, (a, c) in enumerate(zip(b[:-1], b[1:])):
+        sl = slice(a, c)
 
         def run():
             tc, pc = time.perf_counter(), timer.probe_s
@@ -1226,41 +1510,49 @@ def run_headline(cfg, scfg, cam, device):
             torch.cuda.synchronize()
             return time.perf_counter() - tc - (timer.probe_s - pc)
 
-        if a != p0:
+        torch.cuda.synchronize()
+        if k == 0:
+            first_s = run()
+        elif k == 1:
+            run()
+        elif k != 3:
+            s0 = staged_ms()
             plain_s += run()
-            continue
-        from torch.profiler import ProfilerActivity, profile
-
-        # The profiled window keeps its stage calls out of the stage timer.
-        timer.on = False
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            wall = 1000.0 * run()
-        timer.on = True
-        avg = p.key_averages()
-        dev_ms = sum(e.self_device_time_total for e in avg
-                     if e.device_type.name == "CUDA") / 1000.0
-        n_events = sum(e.count for e in avg if e.device_type.name == "CUDA")
-        host = sorted((e for e in avg if e.device_type.name == "CPU"),
-                      key=lambda e: -e.self_cpu_time_total)[:8]
-        print("headline profile, top host ops (self CPU ms, calls): "
-              + ", ".join(f"{e.key} {e.self_cpu_time_total / 1000.0:.1f} x{e.count}"
-                          for e in host))
-    tc, pc = time.perf_counter(), timer.probe_s
+            staged += staged_ms() - s0
+        else:
+            # The profiled window keeps its stage calls out of the stage timer.
+            timer.on = False
+            c0 = read_counts()
+            wall, dev_ms, n_events, avg = profile_window(run)
+            replayed = replay_launches(avg, c0)
+            timer.on = True
+            host = sorted((e for e in avg if e.device_type.name == "CPU"),
+                          key=lambda e: -e.self_cpu_time_total)[:8]
+            print(f"{label} profile, top host ops (self CPU ms, calls): "
+                  + ", ".join(f"{e.key} {e.self_cpu_time_total / 1000.0:.1f} x{e.count}"
+                              for e in host))
+    tc, pc, s0 = time.perf_counter(), timer.probe_s, staged_ms()
     slam.flush_loop()                   # the last chunks' gate and verification
     torch.cuda.synchronize()
     plain_s += time.perf_counter() - tc - (timer.probe_s - pc)
+    staged += staged_ms() - s0
     wall_s = time.perf_counter() - t0
-    launches = read_counts()
+    counted = read_counts()
+    captured = bool(getattr(slam, "_captured", None))
+    launches = path_launches(counted, replayed, captured)
     timer.restore()
     # Device busy share: profiled device time per frame over the mean time of
-    # the unprofiled frames (the profiler itself slows the host).
-    n_plain = LOOP_FRAMES - PROFILE_FRAMES
+    # the timed frames (the profiler itself slows the host).
+    n_plain = (b[3] - b[2]) + (b[6] - b[4])        # the timed chunks' frames
     frame_ms = 1000.0 * plain_s / n_plain
-    busy = dev_ms / PROFILE_FRAMES / frame_ms
-    print(f"headline profile, frames {p0}..{p0 + PROFILE_FRAMES - 1}: wall {wall:.1f} ms "
-          f"with the profiler on, device kernel time {dev_ms:.1f} ms, {n_events} device "
-          f"kernel events; unprofiled frames {frame_ms:.1f} ms each -> device busy "
-          f"{busy:.3f}")
+    r = {"fps": n_plain / plain_s, "busy": dev_ms / PROFILE_FRAMES / frame_ms,
+         "syncs_per_frame": syncs["syncs"] / SYNC_FRAMES, "sync_frames": f"{b[1]}..{b[2] - 1}",
+         "profiled": f"{b[3]}..{b[4] - 1}", "events_per_frame": n_events / PROFILE_FRAMES,
+         "first_chunk_s": first_s, "launches": launches, "costs": list(slam.ba_costs),
+         "outs": outs}
+    print(f"{label} profile, frames {b[3]}..{b[4] - 1}: wall {wall:.1f} ms with the profiler "
+          f"on, device kernel time {dev_ms:.1f} ms, {n_events} device kernel events; timed "
+          f"frames {frame_ms:.1f} ms each -> device busy {r['busy']:.3f} [{SMI}]")
 
     status = np.concatenate([o.status for o in outs])
     n_kf = int(np.concatenate([o.is_keyframe for o in outs]).sum())
@@ -1272,33 +1564,38 @@ def run_headline(cfg, scfg, cam, device):
     closures = [(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures]
     n_imu = np.cumsum([len(t) for t in imuts])
     init_frames = int(np.sum(n_imu[:-1] >= cfg.vio.init_samples))
-    verify = verification_summary(timer, accepted, "headline")
-    print(f"headline: {LOOP_FRAMES} frames, {n_kf} keyframes ({lc.count} in the loop "
+    verify = verification_summary(timer, accepted, label)
+    r.update(ate=(ate_raw, ate_cor), verify=verify,
+             closures=[tuple(x[:4]) for x in accepted])
+    print(f"{label}: {LOOP_FRAMES} frames, {n_kf} keyframes ({lc.count} in the loop "
           f"store), statuses {np.bincount(status)}, {len(closures)} closures "
           f"{closures[:8]}{'...' if len(closures) > 8 else ''}, {verify['pairs']} verified "
           f"pairs in {verify['calls']} verification calls")
-    print(f"headline ATE: odometry {ate_raw:.5f} m, loop-corrected {ate_cor:.5f} m "
+    print(f"{label} ATE: odometry {ate_raw:.5f} m, loop-corrected {ate_cor:.5f} m "
           f"(bound {bound_m:.5f} over a {path:.2f} m path); T_map_odom t "
           f"{lc.T_map_odom.t.cpu().numpy().round(5).tolist()}")
-    staged = sum(v for k, v in timer.ms.items() if k not in NESTED)
-    print(f"headline: {n_plain / plain_s:.2f} frames/s over the {n_plain} unprofiled frames "
-          f"({plain_s:.1f} s; {wall_s:.1f} s for the whole phase incl. the profiled window and "
-          f"{timer.probe_s:.1f} s of stage probes)")
-    print("headline stages over the unprofiled frames, synced host ms in all (per call x "
-          "calls): " + ", ".join(f"{k} {timer.ms[k]:.0f} ({timer.ms[k] / timer.calls[k]:.2f} "
-                                 f"x{timer.calls[k]})" for k in timer.ms)
-          + f"; outside these stages {1000.0 * plain_s - staged:.0f}")
-    print(f"headline {timer.probe_line('vimotion.imu_feed_batch')}")
-    print(f"headline launches: {launches} (IMU-initialised frames {init_frames})")
+    print(phase_line(label, r, f"{b[2]}..{b[3] - 1}, {b[4]}..{b[6] - 1} + flush_loop")
+          + f"; first chunk (frames 0..{b[1] - 1}) {first_s:.2f} s; {wall_s:.1f} s for the "
+          f"whole phase incl. the profiled window and {timer.probe_s:.1f} s of stage probes")
+    print(f"{label} loop node stages over the unprofiled chunks, synced host ms in all (per "
+          "call x calls): " + ", ".join(f"{k} {v:.0f} ({v / timer.calls[k]:.2f} "
+                                        f"x{timer.calls[k]})" for k, v in timer.ms.items())
+          + f"; over the timed chunks {staged:.0f} in the loop node and "
+          f"{1000.0 * plain_s - staged:.0f} outside it")
+    r["graph"] = graph_report(slam, label)
+    print(launch_line(label, counted, replayed, captured, r["profiled"])
+          + f" (IMU-initialised frames {init_frames})")
     if not np.all(status[1:] == 1):
-        fail(f"headline frames not TRACKING: {np.flatnonzero(status != 1).tolist()}")
+        fail(f"{label} frames not TRACKING: {np.flatnonzero(status != 1).tolist()}")
     if not (np.isfinite(C_cor).all() and C_cor.shape == (LOOP_FRAMES, 3)):
-        fail("headline trajectory not finite / wrong shape")
+        fail(f"{label} trajectory not finite / wrong shape")
     if not closures:
-        fail("headline run accepted no loop closure")
+        fail(f"{label} run accepted no loop closure")
     if not (ate_raw < bound_m and ate_cor < bound_m):
-        fail(f"headline ATE {ate_raw} / {ate_cor} over bound {bound_m}")
-    if launches["imu_chain"] < init_frames:
+        fail(f"{label} ATE {ate_raw} / {ate_cor} over bound {bound_m}")
+    if captured:
+        check_in_graph(label, replayed, IN_GRAPH)
+    elif launches["imu_chain"] < init_frames:
         fail(f"imu_chain launched {launches['imu_chain']} times < {init_frames} frames")
     for name in ("fastblur", "sweep"):
         if launches[name] < n_kf:
@@ -1307,7 +1604,7 @@ def run_headline(cfg, scfg, cam, device):
         fail(f"hamming launched {launches['hamming']} times < {verify['calls']} verification "
              "calls")
     check_pgo_repeats(pgo_calls)
-    return launches, busy, verify
+    return r
 
 
 def record_pgo(timer):
@@ -1497,9 +1794,12 @@ def run_phases_of(tree: str) -> int:
     print(f"phases of {Path(flvis_tpu_torch.__file__).parent}; kernel build "
           f"{_build.load_library()[1]['build_s']:.2f} s")
     device = torch.device("cuda", 0)
+    global SMI
+    SMI = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.splitlines()[0]
     cfg, scfg = system_config()
     cam = make_camera(scfg, device)
-    _, _, vb = run_headline(cfg, scfg, cam, device)
+    vb = run_headline(cfg, scfg, cam, device)["verify"]
     _, vc = run_multiseq(cfg, scfg, cam, device)
     print(json.dumps({"b": vb, "c": vc}))
     return 0
@@ -1537,6 +1837,8 @@ def compare_with_parent(tree: str, ours: dict) -> None:
               f"n_inl) {'all equal' if same else 'DIFFERENT'}; max |T_ij difference| {dT:.3e}"
               + ("" if same else "; differing: " + str(
                   [(x[:-1], y[:-1]) for x, y in zip(ca, cb) if x[:-1] != y[:-1]][:8])))
+        if not same:
+            fail(f"phase {ph}: the closures differ from the parent's")
 
 
 MMA_RATES_SOURCE = r"""
@@ -1656,9 +1958,10 @@ def main() -> int:
     from flvis_tpu_torch.ops.kernels import _build
 
     device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    global SMI
+    smi = SMI = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     print(f"gpu: {smi}")
@@ -1701,16 +2004,39 @@ def main() -> int:
     print(f"phase kernel checks: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    slice_launches = run_slice(cfg, scfg, cam, device)
-    print(f"phase a, stereo slice: {time.perf_counter() - t0:.1f} s")
+    slice_r = run_slice(cfg, scfg, cam, device)
+    slice_e = run_slice(cfg, scfg, cam, device, eager=True)
+    compare_runs("slice", slice_r, slice_e)
+    print(f"phase a, stereo slice, captured and eager: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    head_launches, _, verify_b = run_headline(cfg, scfg, cam, device)
-    print(f"phase b, headline: {time.perf_counter() - t0:.1f} s")
+    check_rare_branches(cfg, scfg, cam, device)
+    print(f"rare branches: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    head_r = run_headline(cfg, scfg, cam, device)
+    head_e = run_headline(cfg, scfg, cam, device, eager=True)
+    compare_runs("headline", head_r, head_e)
+    same = head_r["closures"] == head_e["closures"] and head_r["ate"] == head_e["ate"]
+    print(f"headline: captured vs eager closures (i, j, n_match, n_inl) and ATE "
+          f"{'equal' if same else 'DIFFERENT'}: {len(head_r['closures'])} / "
+          f"{len(head_e['closures'])} closures, ATE {head_r['ate']} / {head_e['ate']}")
+    if not same:
+        fail("headline: the captured and the eager run closed other loops or another ATE")
+    print(f"phase b, headline, captured and eager: {time.perf_counter() - t0:.1f} s")
+    for ph, r, e in (("a", slice_r, slice_e), ("b", head_r, head_e)):
+        g = next(iter(r["graph"].values()))
+        print(f"phase {ph} captured vs eager, same call: frames/s {r['fps']:.2f} vs "
+              f"{e['fps']:.2f} ({r['fps'] / e['fps']:.2f}x); device busy {r['busy']:.3f} vs "
+              f"{e['busy']:.3f}; host syncs a frame in a chunk's step {r['syncs_per_frame']:.2f} "
+              f"vs {e['syncs_per_frame']:.2f}; device kernel events a frame "
+              f"{r['events_per_frame']:.0f} vs {e['events_per_frame']:.0f}; a replay "
+              f"{g['kernel_nodes']:.1f} graph kernel nodes and {g['if_bodies']:.2f} IF bodies; "
+              f"capture {g['warmup']:.2f} s warm-up + {g['capture']:.2f} s [{SMI}]")
     t0 = time.perf_counter()
     ms_launches, verify_c = run_multiseq(cfg, scfg, cam, device)
     print(f"phase c, multi-sequence: {time.perf_counter() - t0:.1f} s")
     if args:
-        compare_with_parent(args[1], {"b": verify_b, "c": verify_c})
+        compare_with_parent(args[1], {"b": head_r["verify"], "c": verify_c})
+    slice_launches, head_launches = slice_r["launches"], head_r["launches"]
 
     # Launches on the path each kernel belongs to: the slice for rows 1-2,
     # the headline for 3-6, the multi-sequence composition for 7-8.

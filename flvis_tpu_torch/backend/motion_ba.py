@@ -84,7 +84,7 @@ def _cost(cam, T, pts_w, uv_obs, active, huber_delta):
 
 
 def _lm_iterations(cam, T, pts_w, uv_obs, active, iters: int, huber_delta, lam0):
-    lam = torch.tensor(lam0, dtype=pts_w.dtype, device=pts_w.device)
+    lam = torch.full((), lam0, dtype=pts_w.dtype, device=pts_w.device)
     cost = _cost(cam, T, pts_w, uv_obs, active, huber_delta)
     for _ in range(iters):
         r, J, behind = _residuals_jacobians(cam, T, pts_w, uv_obs)

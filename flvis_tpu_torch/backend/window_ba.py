@@ -13,8 +13,12 @@ schur.MAX_WINDOW poses with `pallas_schur` set, and schur_step_plain
 otherwise (a CPU window, `pallas_schur=False`, or a wider window, which
 warns as the reference does): `_use_schur_kernel` decides once per
 `optimize` call, before any launch.  The reference's while_loop
-(window_ba.py:434-470) keeps its accept / λ / `done` semantics here with one
-host read of `done` per iteration.
+(window_ba.py:434-470) keeps its accept / λ / `done` semantics with each
+step after the first under a utils/control.cond on `done`: eagerly one
+host read of `done` per step, as an early exit; inside the runner's
+captured frame step an IF node, so a converged loop runs no more steps and
+no host read decides anything.  The backend reset is a device select
+(`reset_if`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from ..geometry import se3 as se3m, so3
 from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..ops.kernels import schur
+from ..utils import control
 from ..frontend.landmark_table import free_slot_order, scatter_rows
 
 
@@ -95,8 +100,8 @@ def null_correction(cfg: BackendConfig, *, device, dtype=torch.float32) -> Corre
     """A valid=False Correction of the backend's shapes."""
     l = cfg.max_landmarks
     return Correction(
-        frame_id=torch.tensor(-1, dtype=torch.int32, device=device),
-        q=torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=device),
+        frame_id=torch.full((), -1, dtype=torch.int32, device=device),
+        q=so3.identity((), dtype, device),
         t=torch.zeros(3, dtype=dtype, device=device),
         lm_id=torch.full((l,), -1, dtype=torch.int32, device=device),
         lm_pw=torch.zeros((l, 3), dtype=dtype, device=device),
@@ -108,7 +113,7 @@ def null_correction(cfg: BackendConfig, *, device, dtype=torch.float32) -> Corre
 
 def _empty(w: int, l: int, device, dtype) -> WindowState:
     kf_q = torch.zeros((w, 4), dtype=dtype, device=device)
-    kf_q[:, 0] = 1.0
+    kf_q[:, 0].fill_(1.0)
     return WindowState(
         kf_q=kf_q, kf_t=torch.zeros((w, 3), dtype=dtype, device=device),
         kf_frame_id=torch.full((w,), -1, dtype=torch.int32, device=device),
@@ -120,8 +125,8 @@ def _empty(w: int, l: int, device, dtype) -> WindowState:
         obs_ur=torch.zeros((w, l), dtype=dtype, device=device),
         obs_ur_valid=torch.zeros((w, l), dtype=torch.bool, device=device),
         obs_valid=torch.zeros((w, l), dtype=torch.bool, device=device),
-        head=torch.tensor(0, dtype=torch.int32, device=device),
-        count=torch.tensor(0, dtype=torch.int32, device=device))
+        head=torch.zeros((), dtype=torch.int32, device=device),
+        count=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def empty(cfg: BackendConfig, *, device, dtype=torch.float32) -> WindowState:
@@ -131,6 +136,22 @@ def empty(cfg: BackendConfig, *, device, dtype=torch.float32) -> WindowState:
 def reset(cfg: BackendConfig, state: WindowState) -> WindowState:
     """Full wipe (shape taken from `state`)."""
     return _empty(state.window, state.capacity, state.lm_pw.device, state.lm_pw.dtype)
+
+
+def reset_if(cfg: BackendConfig, state: WindowState, do) -> WindowState:
+    """reset(cfg, state) where `do` (a 0-d bool tensor), else `state`: the
+    reference's lax.cond on the backend reset as one select per field."""
+    def wipe(a, empty):
+        return torch.where(do, empty, a)
+
+    return WindowState(
+        kf_q=wipe(state.kf_q, so3.identity((), state.kf_q.dtype, state.kf_q.device)),
+        kf_t=wipe(state.kf_t, 0.0), kf_frame_id=wipe(state.kf_frame_id, -1),
+        kf_valid=state.kf_valid & ~do, lm_pw=wipe(state.lm_pw, 0.0),
+        lm_id=wipe(state.lm_id, -1), lm_valid=state.lm_valid & ~do,
+        obs_uv=wipe(state.obs_uv, 0.0), obs_ur=wipe(state.obs_ur, 0.0),
+        obs_ur_valid=state.obs_ur_valid & ~do, obs_valid=state.obs_valid & ~do,
+        head=wipe(state.head, 0), count=wipe(state.count, 0))
 
 
 def _set_row(a, i, v):
@@ -254,21 +275,31 @@ def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta,
     consts = _schur_consts(cam, obs, w_mask, fixed_pose)
     cost = _total_cost(_residuals(cam, poses, lm_pw, obs_uv, obs_ur, ur_valid), w_mask,
                        delta)
-    lam = torch.tensor(1e-4, dtype=cost.dtype, device=cost.device)
-    for _ in range(iters):
+    lam = torch.full((), 1e-4, dtype=cost.dtype, device=cost.device)
+    done = torch.zeros((), dtype=torch.bool, device=cost.device)
+
+    def step(poses, lm_pw, lam, cost, done):
         new_poses, new_lm = _schur_step(poses, lm_pw, consts, lam, delta, use_kernel)
         new_cost = _total_cost(_residuals(cam, new_poses, new_lm, obs_uv, obs_ur,
                                           ur_valid), w_mask, delta)
         better = new_cost < cost
-        poses = se3m.where(better, new_poses, poses)
-        lm_pw = torch.where(better, new_lm, lm_pw)
-        lam = torch.where(better, torch.clamp(lam * 0.3, min=1e-7),
-                          torch.clamp(lam * 5.0, max=1e3))
         # Converged: an accepted step improved the cost by < 1e-5 relative.
         done = better & (cost - new_cost < 1e-5 * cost)
-        cost = torch.where(better, new_cost, cost)
-        if bool(done):
-            break
+        return (se3m.where(better, new_poses, poses), torch.where(better, new_lm, lm_pw),
+                torch.where(better, torch.clamp(lam * 0.3, min=1e-7),
+                            torch.clamp(lam * 5.0, max=1e3)),
+                torch.where(better, new_cost, cost), done)
+
+    def keep(*state):
+        return state
+
+    # The reference's while_loop: each step after the first runs under a
+    # cond on `done`, so a converged loop skips the rest.
+    state = (poses, lm_pw, lam, cost, done)
+    for k in range(iters):
+        state = (step(*state) if k == 0
+                 else control.cond(~state[4], step, keep, state, name="lm_step"))
+    poses, lm_pw, _, cost, _ = state
     return poses, lm_pw, cost
 
 

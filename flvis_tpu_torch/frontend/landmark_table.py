@@ -46,7 +46,7 @@ def empty(num_slots: int, *, device, dtype=torch.float32) -> LandmarkTable:
         return torch.zeros(shape, dtype=dt, device=device)
 
     q0 = z(num_slots, 4)
-    q0[:, 0] = 1.0
+    q0[:, 0].fill_(1.0)
     return LandmarkTable(
         uv=z(num_slots, 2), p_w=z(num_slots, 3),
         has_3d=z(num_slots, dt=torch.bool), active=z(num_slots, dt=torch.bool),

@@ -14,10 +14,13 @@ Choices made where the JAX formulation cannot carry over as is:
     optional `Draws` record with the same shapes (uniform scores for the F
     and PnP RANSACs, dummy depths); without it the draws come from the
     caller's torch.Generator.  Parity tests pass JAX's own draws in.
-  - Branches.  The lax.conds on the tracking status (tracker.py:573) and on
-    PnP rescue (tracker.py:423) are host branches here (one device→host
-    read each).  They are the two points that block capturing the frame
-    step as one CUDA graph.  The remaining selects stay torch.where.
+  - Branches.  The lax.conds on the tracking status (tracker.py:573), on
+    PnP rescue (tracker.py:423) and on a Correction's validity
+    (apply_correction) are utils/control.cond: eager, one
+    device→host read each; inside the runner's captured frame step, IF
+    nodes of the CUDA graph, taken on the device.  The remaining selects
+    stay torch.where.  Constants on the step's path are made on the device
+    (torch.full, not torch.tensor, which would copy from the host).
   - Medians.  jnp.nanmedian averages the two middle values, torch.nanmedian
     returns the lower one: torch.nanquantile(x, 0.5) is used instead.
 """
@@ -41,6 +44,7 @@ from ..ops import image as imops
 from ..ops import lk as lk_ops
 from ..ops import pnp as pnp_ops
 from ..ops import ransac as ransac_ops
+from ..utils import control
 from ..utils.tree import tree_map, tree_where
 from . import landmark_table as lt
 
@@ -88,22 +92,34 @@ class Draws(NamedTuple):
     depth: torch.Tensor    # (num_slots,) uniform dummy depths in dummy_depth_range
 
 
-def make_draws(cfg: FrontendConfig, generator: torch.Generator, device) -> Draws:
+def draws_size(cfg: FrontendConfig) -> int:
+    """Uniform numbers one frame draws."""
+    return (2 * cfg.ransac_hypotheses + 1) * cfg.num_slots
+
+
+def draws_of(cfg: FrontendConfig, u) -> Draws:
+    """The Draws record over draws_size(cfg) uniform numbers `u`."""
     h, n = cfg.ransac_hypotheses, cfg.num_slots
     lo, hi = cfg.dummy_depth_range
-    u = torch.rand(2 * h * n + n, generator=generator, device=device)
     return Draws(u[:h * n].view(h, n), u[h * n:2 * h * n].view(h, n),
                  lo + (hi - lo) * u[2 * h * n:])
 
 
+def make_draws(cfg: FrontendConfig, generator: torch.Generator, device, out=None) -> Draws:
+    """One frame's draws from `generator` (into `out`, a (draws_size,)
+    float32 buffer, when given)."""
+    u = torch.rand(draws_size(cfg), generator=generator, device=device, out=out)
+    return draws_of(cfg, u)
+
+
 def _i32(v, device):
-    return torch.tensor(v, dtype=torch.int32, device=device)
+    return torch.full((), v, dtype=torch.int32, device=device)
 
 
 def init_state(cfg: FrontendConfig, *, device, dtype=torch.float32) -> TrackerState:
     I = se3m.identity(dtype=dtype, device=device)
     ring_q = torch.zeros((RING, 4), dtype=dtype, device=device)
-    ring_q[:, 0] = 1.0
+    ring_q[:, 0].fill_(1.0)
     return TrackerState(
         table=lt.empty(cfg.num_slots, device=device, dtype=dtype),
         T_c_w=I, T_prev=I,
@@ -316,15 +332,21 @@ def _track_branch(cfg, cam, state: TrackerState, pyr_prev, pyr0, pyr1, d_img,
 
     survivors, num_inl, err = eval_pose(T_new, ba.inliers)
 
-    # Prior-free PnP rescue on starvation (host branch; see module doc).
-    if cfg.pnp_fallback and bool(num_inl < cfg.min_inliers):
-        xn = torch.stack([(uv_new[:, 0] - cam.cx) / cam.fx,
-                          (uv_new[:, 1] - cam.cy) / cam.fy], dim=-1)
-        T_pnp, _, _ = pnp_ops.pnp_ransac(draws.pnp, table.p_w, xn, ba_mask,
-                                         threshold_n=cfg.ransac_threshold / cam.fx)
-        ba2 = run_ba(T_pnp)
-        T_new = ba2.T_c_w
-        survivors, num_inl, err = eval_pose(T_new, ba2.inliers)
+    # Prior-free PnP rescue on starvation (a cond; see module doc).
+    if cfg.pnp_fallback:
+        def rescue():
+            xn = torch.stack([(uv_new[:, 0] - cam.cx) / cam.fx,
+                              (uv_new[:, 1] - cam.cy) / cam.fy], dim=-1)
+            T_pnp, _, _ = pnp_ops.pnp_ransac(draws.pnp, table.p_w, xn, ba_mask,
+                                             threshold_n=cfg.ransac_threshold / cam.fx)
+            ba2 = run_ba(T_pnp)
+            return (ba2.T_c_w,) + eval_pose(ba2.T_c_w, ba2.inliers)
+
+        def keep():
+            return T_new, survivors, num_inl, err
+
+        T_new, survivors, num_inl, err = control.cond(num_inl < cfg.min_inliers, rescue, keep,
+                                                      name="pnp_rescue")
 
     failed = num_inl < cfg.min_inliers
 
@@ -423,12 +445,12 @@ def track_frame(cfg: FrontendConfig, cam: StereoCamera, state: TrackerState,
     else:
         T_pred = se3m.compose(se3m.exp(state.velocity), state.T_prev)
 
-    # Host branch on the tracking status (see module doc).
-    if bool(state.status == STATUS_TRACKING):
-        new_state, out = _track_branch(cfg, cam, state, pyr_prev, pyr0, pyr1, d_img,
-                                       T_pred, draws)
-    else:
-        new_state, out = _init_branch(cfg, cam, state, pyr0, pyr1, d_img, T_pred, draws)
+    # The branch on the tracking status (a cond; see module doc).
+    new_state, out = control.cond(
+        state.status == STATUS_TRACKING,
+        lambda st: _track_branch(cfg, cam, st, pyr_prev, pyr0, pyr1, d_img, T_pred, draws),
+        lambda st: _init_branch(cfg, cam, st, pyr0, pyr1, d_img, T_pred, draws), (state,),
+        name="status")
 
     # Escaped frames keep the last good LK template.
     escaped = (new_state.fail_count > state.fail_count) | (new_state.status == STATUS_FAIL)
@@ -480,8 +502,12 @@ def _rebase_chain(state: TrackerState, frame_id, delta: SE3, found) -> dict:
 def apply_correction(state: TrackerState, corr) -> TrackerState:
     """Apply a (late) backend Correction: rebase the pose chain onto the
     corrected keyframe pose, overwrite matched landmark positions, kill
-    outliers.  Every effect is gated on corr.valid on the device, so the
-    reference's lax.cond on corr.valid needs no branch here."""
+    outliers — under a cond on corr.valid, as the reference's lax.cond."""
+    return control.cond(corr.valid, lambda st: _apply_correction(st, corr), lambda st: st,
+                        (state,), name="correction")
+
+
+def _apply_correction(state: TrackerState, corr) -> TrackerState:
     delta, found = _ring_rebase(state, corr.frame_id, SE3(corr.q, corr.t), corr.valid)
     t = state.table
     eq = (t.lm_id[:, None] == corr.lm_id[None, :]) & corr.lm_mask[None, :] \

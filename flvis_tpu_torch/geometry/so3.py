@@ -15,7 +15,7 @@ _EPS = 1e-8
 
 def identity(batch_shape=(), dtype=torch.float32, device=None):
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
+    q[..., 0].fill_(1.0)
     return q
 
 

@@ -31,8 +31,10 @@ Differences from the reference, by design:
   - Ingest without shape padding: the reference pads its ingest to blocks
     of {32, 8, 4} keyframes to keep XLA shapes stable, then drops the
     padded rows; the port ingests and transforms only the real rows, with
-    the same results.  Verification runs in the reference's buckets of 8
-    pairs, each padded with its last pair, the padding dropped.
+    the same results.  Verification runs in buckets of up to 8 real pairs:
+    the reference pads the last bucket with its last pair to its compiled
+    shape and drops those rows; the port, eager outside the captured frame
+    step, verifies only the real pairs.
   - Random draws: the verification's PnP RANSAC scores (the reference's
     jax.random.PRNGKey(i·7919 + j), loop_closing.py:977,1062) come from
     `_verify_scores`, a torch.Generator seeded with i·7919 + j; the
@@ -377,15 +379,15 @@ class LoopCloser:
                  for cand in (_gate_decision(row, lo, hi, self.cfg),) if cand is not None]
         if not cands:
             return None
-        # Buckets of VERIFY_BUCKET pairs, each padded with its last pair to
-        # the reference's fixed shape; the padding's rows are dropped (the
-        # reference's dispatch_verify).
+        # Buckets of up to VERIFY_BUCKET real pairs.  The reference pads the
+        # last bucket with its last pair to its compiled shape; the loop node
+        # runs eagerly here, outside the captured frame step, so a bucket
+        # takes any size and the padding's matcher/EPnP work is left out.
         stats = []
         for b0 in range(0, len(cands), VERIFY_BUCKET):
             bucket = cands[b0:b0 + VERIFY_BUCKET]
-            bucket = bucket + bucket[-1:] * (VERIFY_BUCKET - len(bucket))
             stats.append(self._verify_device_batch([i for i, _ in bucket], [j for _, j in bucket]))
-        return ("verify", cands, torch.cat(stats)[:len(cands)])
+        return ("verify", cands, torch.cat(stats))
 
     def pending_verify_arrays(self, handle):
         """The device statistics inside a dispatch_verify handle, or None."""

@@ -51,6 +51,10 @@ _SIGNATURES = {
     "flvis_bow_tf": [_P, _P, _P, _P, _I, _I, _I, _P],
     "flvis_gather_windows": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _P, _L, _P, _I, _I, _I, _P],
     "flvis_gather_patches": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _L, _P, _I, _I, _P],
+    "flvis_cond_open": [_P, _P, _P, _P],
+    "flvis_cond_body_begin": [_P, ctypes.c_ulonglong, _P],
+    "flvis_cond_body_end": [_P, _P],
+    "flvis_graph_census": [_P, _P],
 }
 
 

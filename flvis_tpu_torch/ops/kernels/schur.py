@@ -37,12 +37,17 @@ cross-tile sums go through shared memory of a cluster and a
 last-block-done pass.  The last block is found by an integer ticket that
 belongs to the stream (`_ticket`): zeroed once, reset by the last block of
 every call, so calls on one stream follow each other and calls on
-different streams never share it.
+different streams never share it.  A captured CUDA graph brings its own,
+allocated before its capture (`use_ticket`): a ticket made during the
+capture would come from the graph's pool, and one graph would otherwise
+share it with every other graph captured on the same stream.
 Windows of more than 16 poses are refused (the solve's shared memory is
 sized for 96 unknowns, as the TPU kernel's routing limit W ≤ 16).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -50,6 +55,7 @@ from . import _build
 
 MAX_WINDOW = 16
 _TICKETS: dict = {}     # (device index, raw stream) -> the stream's uint32 ticket
+_OWN_TICKETS: list = []  # use_ticket's, innermost last
 
 
 def schur_step_plain(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float):
@@ -174,9 +180,23 @@ def schur_step_kernel(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float
 schur_step_kernel.launches = 0
 
 
+@contextlib.contextmanager
+def use_ticket(ticket):
+    """Within: every launch takes `ticket` (a zeroed int32 (1,) tensor on
+    the launch's device) as its last-block ticket instead of its stream's."""
+    _OWN_TICKETS.append(ticket)
+    try:
+        yield
+    finally:
+        _OWN_TICKETS.pop()
+
+
 def _ticket(device, stream: int):
-    """The last-block ticket of `stream` on `device`: made zero on that
-    stream at its first use; every call leaves it 0 again."""
+    """The last-block ticket of `stream` on `device` (use_ticket's within
+    it): made zero on that stream at its first use; every call leaves it 0
+    again."""
+    if _OWN_TICKETS:
+        return _OWN_TICKETS[-1]
     key = (device.index, stream)
     ticket = _TICKETS.get(key)
     if ticket is None:

@@ -45,7 +45,10 @@ def _rank2_project(F):
     sigma = torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)[:, None, None]
     B = sigma * torch.eye(3, dtype=F.dtype, device=F.device) - G
     v = torch.full((F.shape[0], 3), 1.0 / 3.0 ** 0.5, dtype=F.dtype, device=F.device)
-    v = v + torch.tensor([0.0, 1e-3, -2e-3], dtype=F.dtype, device=F.device)
+    tilt = torch.zeros(3, dtype=F.dtype, device=F.device)
+    tilt[1].fill_(1e-3)
+    tilt[2].fill_(-2e-3)
+    v = v + tilt
     for _ in range(12):
         v = torch.einsum("mij,mj->mi", B, v)
         v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-20)
@@ -86,8 +89,8 @@ def fundamental_ransac(scores, pts0, pts1, valid, threshold=3.0):
     s = 0.5 * (T0[0, 0] + T1[0, 0])
     inl = (d2 < (threshold * s) ** 2) & valid[None, :]
     counts = torch.sum(inl, dim=-1)
-    best = torch.argmax(counts)
-    return inl[best], T1.T @ F[best] @ T0, counts[best]
+    best = torch.argmax(counts).reshape(1)      # a tensor index: no host read
+    return inl[best][0], T1.T @ F[best][0] @ T0, counts[best][0]
 
 
 def mad_gate(residuals, valid, sigma_mult=3.0, min_threshold=1.5):

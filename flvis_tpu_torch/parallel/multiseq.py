@@ -25,7 +25,9 @@ it.  The PnP rescue is off for batched runs, as in the reference
 (`_batched_fcfg`).
 
 Random draws: each sequence's tracker draws come from its own
-torch.Generator (`generators`), or from the draws a test hands in.
+torch.Generator (`generators`), or from the draws a test hands in.  The
+steps run eagerly: each cond of the frame step reads the host once
+(utils/control.cond), as the host branches it replaced did.
 """
 
 from __future__ import annotations
@@ -63,11 +65,11 @@ def init_states(cfg: FrontendConfig, num_seqs: int, *, device):
 def init_system_states(fcfg: FrontendConfig, bcfg: BackendConfig, num_seqs: int, *, device,
                        vcfg: VioConfig | None = None):
     """Per-sequence (tracker states, BA windows, pending corrections[, VIO
-    states]); a pending correction of None applies nothing (the reference's
-    null correction)."""
+    states]); the pending corrections start as the null correction
+    (valid=False, applies nothing)."""
     out = (init_states(fcfg, num_seqs, device=device),
            [window_ba.empty(bcfg, device=device) for _ in range(num_seqs)],
-           [None] * num_seqs)
+           [window_ba.null_correction(bcfg, device=device)] * num_seqs)
     if vcfg is not None:
         out += ([vimotion.init_state(vcfg, device=device) for _ in range(num_seqs)],)
     return out
@@ -104,18 +106,19 @@ def _chunk(bcfg, cams, bas, corrs, T: int, S: int, ba_every: int, frame):
     corr) runs sequence s's frame core on frame t and returns (fe, out).
     Returns (bas, corrs, outs [S][T], costs (S, T))."""
     bas, corrs = list(bas), list(corrs)
+    null = window_ba.null_correction(bcfg, device=cams[0].fx.device)
     outs = [[None] * T for _ in range(S)]
-    costs = [[torch.zeros((), device=cams[s].fx.device) for _ in range(T)] for s in range(S)]
+    costs = [[None] * T for _ in range(S)]
     for t in range(T):
         for s in range(S):
             fe, out = frame(s, t, corrs[s])
-            corrs[s] = None
+            corrs[s] = null
             outs[s][t] = out
             if ba_every == 1:
-                bas[s], res, _ = runner_m._ba_tail(bcfg, cams[s], bas[s], fe, out)
-                if res is not None:
-                    corrs[s], costs[s][t] = res.correction, res.cost
+                bas[s], _, corrs[s], costs[s][t] = runner_m._ba_tail(bcfg, cams[s], null,
+                                                                     bas[s], fe, out)
                 continue
+            costs[s][t] = torch.zeros((), device=cams[s].fx.device)
             if bool(out.reset_backend):
                 bas[s] = window_ba.reset(bcfg, bas[s])
             if bool(out.is_keyframe):
@@ -138,8 +141,9 @@ def system_chunk_batch(fcfg: FrontendConfig, bcfg: BackendConfig, cams, fe_state
     S, T = imgs0.shape[:2]
 
     def frame(s, t, corr):
+        draws = tracker.make_draws(fcfg, generators[s], imgs0.device)
         fes[s], out = runner_m._stereo_frame_core(fcfg, cams[s], fes[s], corr, imgs0[s, t],
-                                                  imgs1[s, t], generators[s])
+                                                  imgs1[s, t], draws)
         return fes[s], out
 
     bas, corrs, outs, costs = _chunk(bcfg, cams, ba_states, corrs, T, S, ba_every, frame)
@@ -160,8 +164,9 @@ def system_chunk_batch_vio(fcfg: FrontendConfig, bcfg: BackendConfig, vcfg: VioC
     def frame(s, t, corr):
         xs = (imgs0[s, t], imgs1[s, t], ts[s, t], acc[s, t], gyro[s, t], imu_t[s, t],
               imu_valid[s, t])
+        draws = tracker.make_draws(fcfg, generators[s], imgs0.device)
         fes[s], vios[s], out = runner_m._vio_frame_core(fcfg, vcfg, cams[s], T_i_cs[s], fes[s],
-                                                        vios[s], corr, xs, generators[s])
+                                                        vios[s], corr, xs, draws)
         return fes[s], out
 
     bas, corrs, outs, costs = _chunk(bcfg, cams, ba_states, corrs, T, S, ba_every, frame)

@@ -2,12 +2,30 @@
 correction feedback, with optional IMU feedforward/feedback and the loop
 node (port of flvis_tpu/pipeline/runner.py).
 
-One stereo frame step = apply the pending Correction → track_frame → on a
-backend reset, wipe the window → on a keyframe, add_keyframe + the 12+8
-Schur LM optimize, whose Correction is applied at the start of the next
-frame (the reference's one-keyframe-late feedback).  The reference runs a
-chunk of such steps as one lax.scan device program; here process_frames
-and process_frames_vio are Python loops over the step.
+One stereo frame step (_fused_frame_step, the reference's
+runner.py:104-113) = apply the pending Correction (a no-op unless it is
+valid) → track_frame → the backend reset as a device select → on a
+keyframe (a cond), add_keyframe + the 12+8 Schur LM optimize, whose
+Correction is applied at the start of the next frame (the reference's
+one-keyframe-late feedback); off keyframes the pending Correction is the
+null one.  _fused_vio_frame_step (runner.py:205-212) adds the IMU packet,
+the feedforward prior, the roll/pitch blend and the vision → IMU feedback
+(a cond on TRACKING).  The reference runs a chunk of such steps as one
+lax.scan device program; here, on a CUDA device, process_frames and
+process_frames_vio capture the step once per system and path into one
+CUDA graph (utils/control.CapturedStep: the conds become IF nodes taken on
+the device) and replay it a frame, with no host read before the chunk's
+end: the host copies the frame's images (and IMU packet) into the graph's
+input buffers, draws the frame's uniforms into its draws buffer from the
+system's generator — outside the graph, so the captured and the eager step
+consume the same bits of one generator (a generator registered with the
+graph would draw inside it, from philox offsets of its own) — replays, and
+copies the frame's packed outputs and KeyframePacket out.  A capture
+failure raises, naming the operation; nothing falls back to eager
+execution.  On a CPU device the same step runs
+eagerly (run_chunk_eager, whose conds read the host once each); the eager
+composition is also what the tests and chip_smoke.py hold the captured
+step to, bit for bit.
 
 Three entry points, with the reference's semantics:
   - process_frame (stepwise): the IMU prior replaces the constant-velocity
@@ -22,22 +40,17 @@ Three entry points, with the reference's semantics:
     ff.ok and TRACKING, and the bias feedback BEFORE the backend tail.
 The two chunk entries end the chunk as the reference's _finish_chunk does
 (runner.py:469-556): the chunk's outputs are packed into one (T, 14) array
-and fetched to the host once, together with the loop node's pending gate
-rows and verification statistics; then the chunk's keyframes go into the
-loop node as one batch (add_keyframes_batch) and their candidate gate is
+and fetched to the host once, together with the captured step's taken
+counts and the loop node's pending gate rows and verification
+statistics; then the chunk's keyframes go into the loop node as one batch
+(add_keyframes_batch) and their candidate gate is
 computed, to be decided at the next chunk's end, whose verification is
 accepted at the end of the chunk after that (flush_loop resolves the
 last ones).  LoopStage holds that deferred contract for one loop node;
 parallel/multiseq_loop runs one per sequence.  With pipelined=True a
 chunk's end runs when the next chunk has been stepped, so results return
-one chunk late and flush() drains;
-the frame step reads the device at its host branches, so this keeps the
-reference's return lag and dataflow without overlapping anything.
-
-The lax.conds of the reference become host branches (backend reset,
-keyframe, the IMU filter's initialisation, the feedback on TRACKING); with
-the tracker's two host branches they keep the frame step from being
-captured as one CUDA graph.
+one chunk late and flush() drains.  The loop node runs eagerly at the
+chunk ends, outside the graph.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 the sparse-map recorder (output_sparse_map) and the loop node on its own
@@ -58,7 +71,9 @@ from ..geometry import se3 as se3m, so3
 from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..loop.loop_closing import LoopCloser
-from ..utils.tree import tree_map
+from ..ops.kernels import schur
+from ..utils import control
+from ..utils.tree import tree_leaves, tree_map
 from ..vio import vimotion
 
 _NOT_PORTED = {
@@ -150,51 +165,155 @@ class LoopStage:
             self.lc.optimize_graph()
 
 
-def _ba_tail(bcfg, cam: StereoCamera, ba, fe, out):
-    """The backend tail of a frame step: reset → keyframe window BA.
-    Returns (ba, BAResult, KeyframePacket) — the last two None off
-    keyframes."""
-    if bool(out.reset_backend):
-        ba = window_ba.reset(bcfg, ba)
-    if not bool(out.is_keyframe):
-        return ba, None, None
+def _ba_tail(bcfg, cam: StereoCamera, null, ba, fe, out):
+    """The backend tail of a frame step (the reference's _ba_tail,
+    runner.py:77-101): the reset as a device select, then the keyframe's
+    add_keyframe + window BA under a cond.  Returns (ba, KeyframePacket,
+    Correction — `null` off keyframes —, BA cost — 0 off keyframes)."""
+    ba = window_ba.reset_if(bcfg, ba, out.reset_backend)
     pkt = tracker.make_keyframe_packet(fe, out)
-    ba = window_ba.add_keyframe(bcfg, ba, pkt)
-    res = window_ba.optimize(bcfg, cam, ba)
-    return res.state, res, pkt
+
+    def do_kf(b):
+        res = window_ba.optimize(bcfg, cam, window_ba.add_keyframe(bcfg, b, pkt))
+        return res.state, res.correction, res.cost
+
+    def no_kf(b):
+        return b, null, torch.zeros((), dtype=torch.float32, device=out.status.device)
+
+    ba, corr, cost = control.cond(out.is_keyframe, do_kf, no_kf, (ba,), name="keyframe")
+    return ba, pkt, corr, cost
 
 
-def _stereo_frame_core(fcfg, cam: StereoCamera, fe, corr, img0, img1, generator):
-    """Apply the pending Correction (None: none) and track one stereo frame.
-    Returns (fe, FrameOutput)."""
-    if corr is not None:
-        fe = tracker.apply_correction(fe, corr)
-    return tracker.track_frame(fcfg, cam, fe, img0, img1, generator=generator)
+def _stereo_frame_core(fcfg, cam: StereoCamera, fe, corr, img0, img1, draws):
+    """Apply the pending Correction (a no-op unless corr.valid) and track
+    one stereo frame on `draws`.  Returns (fe, FrameOutput)."""
+    fe = tracker.apply_correction(fe, corr)
+    return tracker.track_frame(fcfg, cam, fe, img0, img1, draws=draws)
 
 
-def _vio_frame_core(fcfg, vcfg, cam: StereoCamera, T_i_c: SE3, fe, vio, corr, xs, generator):
+def _vio_frame_core(fcfg, vcfg, cam: StereoCamera, T_i_c: SE3, fe, vio, corr, xs, draws):
     """The VIO frame step minus the backend tail (the reference's
     _vio_frame_core): IMU packet → feedforward prior → apply the pending
-    Correction → track → roll/pitch blend → vision → IMU bias feedback.
-    xs = (img0, img1, t_img, acc, gyro, imu_t, imu_valid).  Returns (fe,
-    vio, FrameOutput)."""
+    Correction → track → roll/pitch blend → vision → IMU bias feedback (a
+    cond on TRACKING).  xs = (img0, img1, t_img, acc, gyro, imu_t,
+    imu_valid).  Returns (fe, vio, FrameOutput)."""
     img0, img1, t_img, acc, gyro, it, iv = xs
     vio = vimotion.imu_feed_batch(vcfg, vio, acc, gyro, it, iv)
     ff = vimotion.get_frame_state(vio, t_img, T_i_c)
-    if corr is not None:
-        fe = tracker.apply_correction(fe, corr)
+    fe = tracker.apply_correction(fe, corr)
     cv = se3m.compose(se3m.exp(fe.velocity), fe.T_prev)
     fe, out = tracker.track_frame(fcfg, cam, fe, img0, img1,
                                   prior_T=se3m.where(ff.ok, ff.T_c_w, cv), use_prior=True,
-                                  generator=generator)
+                                  draws=draws)
     T_blend = vimotion.rp_compensate_pose(vcfg, out.T_c_w, ff.q_w_i, T_i_c)
     do_blend = ff.ok & (out.status == tracker.STATUS_TRACKING)
     T_out = se3m.where(do_blend, T_blend, out.T_c_w)
     fe = tracker.rebase_pose(fe, fe.frame_id - 1, T_out, do_blend)
     out = out._replace(T_c_w=T_out)
-    if bool(out.status == tracker.STATUS_TRACKING):
-        vio = vimotion.correction_from_vision(vcfg, vio, t_img, T_out, T_i_c)
+    vio = control.cond(out.status == tracker.STATUS_TRACKING,
+                       lambda v: vimotion.correction_from_vision(vcfg, v, t_img, T_out, T_i_c),
+                       lambda v: v, (vio,), name="vio_feedback")
     return fe, vio, out
+
+
+def _fused_frame_step(fcfg, bcfg, cam: StereoCamera, null, carry, xs, draws):
+    """One frame of the fused stereo pipeline (the reference's
+    _fused_frame_step, runner.py:104-113): apply the pending Correction,
+    track, and the keyframe BA tail.  carry = (fe, ba, corr), xs = (img0,
+    img1).  Returns (carry', (FrameOutput, KeyframePacket, Correction,
+    cost)).  No host read decides anything on a CUDA device unless a cond
+    runs eagerly; SlamSystem captures this step as one CUDA graph."""
+    fe, ba, corr = carry
+    fe, out = _stereo_frame_core(fcfg, cam, fe, corr, *xs, draws)
+    ba, pkt, corr_new, cost = _ba_tail(bcfg, cam, null, ba, fe, out)
+    return (fe, ba, corr_new), (out, pkt, corr_new, cost)
+
+
+def _fused_vio_frame_step(fcfg, bcfg, vcfg, cam: StereoCamera, T_i_c: SE3, null, carry, xs,
+                          draws):
+    """One frame of the fused VIO pipeline (the reference's
+    _fused_vio_frame_step, runner.py:205-212): carry = (fe, ba, vio, corr),
+    xs = (img0, img1, t_img, acc, gyro, imu_t, imu_valid).  Returns as
+    _fused_frame_step does."""
+    fe, ba, vio, corr = carry
+    fe, vio, out = _vio_frame_core(fcfg, vcfg, cam, T_i_c, fe, vio, corr, xs, draws)
+    ba, pkt, corr_new, cost = _ba_tail(bcfg, cam, null, ba, fe, out)
+    return (fe, ba, vio, corr_new), (out, pkt, corr_new, cost)
+
+
+def _frame_row(ys):
+    """A frame's outputs (FrameOutput, KeyframePacket, Correction, cost) as
+    (its packed (14,) row, its KeyframePacket)."""
+    out, pkt, corr, cost = ys
+    row = _pack_outputs(tree_map(lambda a: a[None], out), cost[None], corr.valid[None])[0]
+    return row, pkt
+
+
+def run_chunk_eager(step, carry, xs, draws):
+    """step(carry, xs_i, draws_i) over a chunk, eagerly: xs a tuple of
+    (T, ...) tensors, draws a callable i → Draws.  Returns (carry, packed
+    (T, 14) outputs, KeyframePacket stacked over T)."""
+    rows, pkts = [], []
+    for i in range(xs[0].shape[0]):
+        carry, ys = step(carry, tuple(x[i] for x in xs), draws(i))
+        row, pkt = _frame_row(ys)
+        rows.append(row)
+        pkts.append(pkt)
+    return carry, torch.stack(rows), tree_map(lambda *a: torch.stack(a), *pkts)
+
+
+def _upload(a, device):
+    """A host array (or tensor) on `device` without a host sync (through
+    pinned memory on a CUDA device); tensors already there pass through."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class _Captured:
+    """One SlamSystem's captured frame step (stereo or VIO): the
+    CapturedStep over static carry/inputs/draws buffers, replayed per
+    frame.  Capture happens at the first chunk; a failure raises."""
+
+    def __init__(self, step, carry, xs, fcfg, ticket, name):
+        self.fcfg = fcfg
+        dev = xs[0].device
+        self.u = torch.zeros(tracker.draws_size(fcfg), dtype=torch.float32, device=dev)
+        self.xs = tuple(x.clone() for x in xs)
+
+        def fn(c, inputs):
+            *frame, u = inputs
+            c, ys = step(c, tuple(frame), tracker.draws_of(fcfg, u))
+            return c, _frame_row(ys)
+
+        with schur.use_ticket(ticket):
+            self.step = control.CapturedStep(fn, tree_map(torch.clone, carry),
+                                             self.xs + (self.u,), name=name)
+        self.row, self.pkt = self.step.ys
+
+    def run(self, carry, xs, generator):
+        """The chunk: carry (a state tree, copied in), xs (T, ...) tensors.
+        Returns (carry (fresh tensors), packed (T, 14), stacked packets)."""
+        for dst, src in zip(tree_leaves(self.step.carry), tree_leaves(carry)):
+            dst.copy_(src)
+        T = xs[0].shape[0]
+        packed = torch.empty((T,) + tuple(self.row.shape), dtype=self.row.dtype,
+                             device=self.row.device)
+        pkts = tree_map(lambda a: torch.empty((T,) + tuple(a.shape), dtype=a.dtype,
+                                              device=a.device), self.pkt)
+        pkt_out, pkt_in = tree_leaves(pkts), tree_leaves(self.pkt)
+        for i in range(T):
+            for dst, x in zip(self.xs, xs):
+                dst.copy_(x[i])
+            tracker.make_draws(self.fcfg, generator, self.u.device, out=self.u)
+            self.step.replay()
+            packed[i].copy_(self.row)
+            for dst, src in zip(pkt_out, pkt_in):
+                dst[i].copy_(src)
+        return tree_map(torch.clone, self.step.carry), packed, pkts
 
 
 def pack_imu_frames(imu_accs, imu_gyros, imu_ts, pad: int = 16):
@@ -248,7 +367,8 @@ class SlamSystem:
         self.vio_state = vimotion.init_state(cfg.vio, device=self.device)
         self.loop_closer = LoopCloser(cfg.loop, cam, device=self.device) if use_loop else None
         self.loop_stage = LoopStage(self.loop_closer) if use_loop else None
-        self.pending_corr: Optional[window_ba.Correction] = None
+        self._null = window_ba.null_correction(cfg.backend, device=self.device)
+        self.pending_corr = self._null  # always a Correction; valid=False applies nothing
         self._frames_processed = 0
         self.keyframes: list = []       # KeyframePacket per keyframe
         self.trajectory: list = []      # (frame_id, t_img, q, t) numpy
@@ -256,6 +376,10 @@ class SlamSystem:
         self.n_valid_corrections = 0    # keyframes whose BA produced a valid Correction
         self.pipelined = pipelined
         self._inflight = None           # the chunk whose end is still to run
+        self._captured = {}             # "stereo" / "vio" -> _Captured (CUDA devices)
+        # The schur kernel's last-block ticket of this system's captured steps.
+        self._ticket = (torch.zeros(1, dtype=torch.int32, device=self.device)
+                        if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ IMU
     def feed_imu(self, acc, gyro, t):
@@ -276,44 +400,28 @@ class SlamSystem:
             padded(t, (pad,)), torch.arange(b + pad, device=self.device) < b)
 
     # ---------------------------------------------------------------- steps
-    def _apply_pending(self):
-        if self.pending_corr is not None:
-            self.fe_state = tracker.apply_correction(self.fe_state, self.pending_corr)
-            self.pending_corr = None
+    def _stereo_step(self, carry, xs, draws):
+        return _fused_frame_step(self.cfg.frontend, self.cfg.backend, self.cam, self._null,
+                                 carry, xs, draws)
 
-    def _tail(self, out):
-        self.ba_state, res, pkt = _ba_tail(self.cfg.backend, self.cam, self.ba_state,
-                                           self.fe_state, out)
-        if res is not None:
-            self.pending_corr = res.correction
-        return out, res, pkt
-
-    def _stereo_step(self, img0, img1):
-        corr, self.pending_corr = self.pending_corr, None
-        self.fe_state, out = _stereo_frame_core(self.cfg.frontend, self.cam, self.fe_state,
-                                                corr, img0, img1, self.generator)
-        return self._tail(out)
-
-    def _vio_step(self, *xs):
-        corr, self.pending_corr = self.pending_corr, None
-        self.fe_state, self.vio_state, out = _vio_frame_core(
-            self.cfg.frontend, self.cfg.vio, self.cam, self.T_i_c, self.fe_state,
-            self.vio_state, corr, xs, self.generator)
-        return self._tail(out)
+    def _vio_step(self, carry, xs, draws):
+        return _fused_vio_frame_step(self.cfg.frontend, self.cfg.backend, self.cfg.vio,
+                                     self.cam, self.T_i_c, self._null, carry, xs, draws)
 
     def _to_device(self, img):
-        return torch.as_tensor(np.asarray(img)).to(self.device)
+        return _upload(img, self.device)
 
     # -------------------------------------------------------------- entries
     def process_frame(self, img0, img1, t_img: float = 0.0):
         """One frame (host arrays or tensors, uint8 or float32) at image time
-        t_img; returns the FrameOutput (tensors on the system's device)."""
+        t_img; returns the FrameOutput (tensors on the system's device).
+        The stepwise path runs eagerly (its conds read the host)."""
         if self._inflight is not None:
             # Keep the host logs stream-ordered: finish the chunk in flight.
             inflight, self._inflight = self._inflight, None
             self._finish_chunk(*inflight)
         img0, img1 = self._to_device(img0), self._to_device(img1)
-        self._apply_pending()
+        self.fe_state = tracker.apply_correction(self.fe_state, self.pending_corr)
         prior, use_prior, ff = None, False, None
         if self.use_imu:
             ff = vimotion.get_frame_state(self.vio_state, t_img, self.T_i_c)
@@ -331,11 +439,12 @@ class SlamSystem:
                 torch.tensor(self._frames_processed, dtype=torch.int32, device=self.device),
                 T_blend, torch.tensor(True, device=self.device))
             out = out._replace(T_c_w=T_blend)
-        _, res, pkt = self._tail(out)
-        if pkt is not None:
+        self.ba_state, pkt, self.pending_corr, cost = _ba_tail(
+            self.cfg.backend, self.cam, self._null, self.ba_state, self.fe_state, out)
+        if bool(out.is_keyframe):
             self.keyframes.append(pkt)
-            self.ba_costs.append(float(res.cost))
-            self.n_valid_corrections += int(res.correction.valid)
+            self.ba_costs.append(float(cost))
+            self.n_valid_corrections += int(self.pending_corr.valid)
             if self.loop_closer is not None:
                 # The loop node ingests the same keyframe stream, stepwise.
                 k = self.loop_closer.add_keyframe(img0, img1, out.T_c_w, int(pkt.frame_id))
@@ -350,28 +459,63 @@ class SlamSystem:
         self._frames_processed += 1
         return out
 
-    def _run_chunk(self, step, T: int, *xs):
-        """Step T frames; returns the packed (T, 14) outputs (on the device)
-        and the keyframes' packets (None on other frames)."""
-        outs, pkts, costs, valids = [], [], [], []
-        zero = torch.zeros((), device=self.device)
-        for i in range(T):
-            out, res, pkt = step(*(x[i] for x in xs))
-            outs.append(out)
-            pkts.append(pkt)
-            costs.append(zero if res is None else res.cost)
-            valids.append(zero if res is None else res.correction.valid.to(zero.dtype))
-        stacked = tree_map(lambda *a: torch.stack(a), *outs)
-        return _pack_outputs(stacked, torch.stack(costs), torch.stack(valids)), pkts
+    def _carry(self, vio: bool):
+        return ((self.fe_state, self.ba_state, self.vio_state, self.pending_corr) if vio
+                else (self.fe_state, self.ba_state, self.pending_corr))
+
+    def _set_carry(self, vio: bool, carry):
+        if vio:
+            self.fe_state, self.ba_state, self.vio_state, self.pending_corr = carry
+        else:
+            self.fe_state, self.ba_state, self.pending_corr = carry
+
+    def _run_chunk(self, kind: str, xs):
+        """Step the chunk's frames (xs: (T, ...) tensors on the device) from
+        the system's state: on a CUDA device one replay of the captured step
+        a frame (captured at the first chunk), else the eager step.  Updates
+        the state; returns the packed (T, 14) outputs and the stacked
+        KeyframePackets (on the device) and the captured step, or None."""
+        if self.device.type != "cuda":
+            return self._run_chunk_eager(kind, xs)
+        vio = kind == "vio"
+        cap = self._captured_step(kind, xs)
+        carry, packed, pkts = cap.run(self._carry(vio), xs, self.generator)
+        self._set_carry(vio, carry)
+        return packed, pkts, cap
+
+    def _captured_step(self, kind: str, xs):
+        """The system's captured `kind` step, captured now (from the
+        system's state, on a frame of xs's shapes) unless it was before."""
+        cap = self._captured.get(kind)
+        if cap is None:
+            vio = kind == "vio"
+            cap = self._captured[kind] = _Captured(
+                self._vio_step if vio else self._stereo_step, self._carry(vio),
+                tuple(x[0] for x in xs), self.cfg.frontend, self._ticket,
+                f"the {kind} frame step")
+        return cap
+
+    def _run_chunk_eager(self, kind: str, xs):
+        """_run_chunk through the eager composition (run_chunk_eager over
+        the module-level fused step), on the same draws."""
+        vio = kind == "vio"
+        fcfg = self.cfg.frontend
+        carry, packed, pkts = run_chunk_eager(
+            self._vio_step if vio else self._stereo_step, self._carry(vio), xs,
+            lambda i: tracker.make_draws(fcfg, self.generator, self.device))
+        self._set_carry(vio, carry)
+        return packed, pkts, None
 
     def process_frames(self, imgs0, imgs1, ts=None):
         """Replay T stacked stereo frames (T, H, W).  Returns the chunk's
         FrameOutput as host numpy arrays — in pipelined mode the previous
-        chunk's (None on the first call; flush() returns the last)."""
+        chunk's (None on the first call; flush() returns the last).  On a
+        CUDA device each frame is one replay of the captured step (a capture
+        failure raises), with no host read before the chunk's end."""
         imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
         T = imgs0.shape[0]
-        packed, pkts = self._run_chunk(self._stereo_step, T, imgs0, imgs1)
-        return self._after_dispatch(packed, pkts, imgs0, imgs1, ts, T)
+        packed, pkts, cap = self._run_chunk("stereo", (imgs0, imgs1))
+        return self._after_dispatch(packed, pkts, cap, imgs0, imgs1, ts, T)
 
     def process_frames_vio(self, imgs0, imgs1, ts, imu_acc, imu_gyro, imu_t,
                            imu_pad: int = 16):
@@ -390,29 +534,32 @@ class SlamSystem:
             imu_acc = [np.asarray(imu_acc[0])[k:]] + list(imu_acc[1:])
             imu_gyro = [np.asarray(imu_gyro[0])[k:]] + list(imu_gyro[1:])
             imu_t = [np.asarray(imu_t[0])[k:]] + list(imu_t[1:])
-        acc, gyro, it, iv = (torch.as_tensor(a, device=self.device)
+        acc, gyro, it, iv = (_upload(a, self.device)
                              for a in pack_imu_frames(imu_acc, imu_gyro, imu_t, imu_pad))
-        ts32 = torch.as_tensor(np.asarray(ts, np.float32), device=self.device)
-        packed, pkts = self._run_chunk(self._vio_step, T, imgs0, imgs1, ts32, acc, gyro, it,
-                                       iv)
-        return self._after_dispatch(packed, pkts, imgs0, imgs1, ts, T)
+        ts32 = _upload(np.asarray(ts, np.float32), self.device)
+        packed, pkts, cap = self._run_chunk("vio", (imgs0, imgs1, ts32, acc, gyro, it, iv))
+        return self._after_dispatch(packed, pkts, cap, imgs0, imgs1, ts, T)
 
-    def _after_dispatch(self, packed, pkts, imgs0, imgs1, ts, T):
+    def _after_dispatch(self, *chunk):
         """Synchronous mode finishes the chunk now; pipelined mode keeps it
         in flight and finishes the previous one (None on the first call)."""
         if not self.pipelined:
-            return self._finish_chunk(packed, pkts, imgs0, imgs1, ts, T)
-        prev, self._inflight = self._inflight, (packed, pkts, imgs0, imgs1, ts, T)
+            return self._finish_chunk(*chunk)
+        prev, self._inflight = self._inflight, chunk
         return self._finish_chunk(*prev) if prev is not None else None
 
-    def _finish_chunk(self, packed_dev, pkts, imgs0, imgs1, ts, T):
+    def _finish_chunk(self, packed_dev, pkts, cap, imgs0, imgs1, ts, T):
         """A chunk's end (the reference's _finish_chunk): ONE host fetch of
-        the packed outputs with the loop stage's pending gate rows and
-        verification statistics; resolve the loop stage; log the chunk;
-        ingest its keyframes into the loop node and gate them."""
+        the packed outputs with the captured step's taken counts and the
+        loop stage's pending gate rows and verification statistics; resolve
+        the loop stage; log the chunk; ingest its keyframes into the loop
+        node and gate them."""
         stage = self.loop_stage
-        packed, rows, stats = fetch(packed_dev,
-                                    *(stage.pending() if stage is not None else (None, None)))
+        packed, taken, rows, stats = fetch(
+            packed_dev, cap.step.taken if cap is not None else None,
+            *(stage.pending() if stage is not None else (None, None)))
+        if cap is not None:
+            cap.step.settle(taken)
         if stage is not None:
             stage.resolve(rows, stats)
         outs = _unpack_outputs(packed)
@@ -420,7 +567,7 @@ class SlamSystem:
         self._frames_processed += T
         kf_idx = [i for i in range(T) if outs.is_keyframe[i]]
         for i in kf_idx:
-            self.keyframes.append(pkts[i])
+            self.keyframes.append(tree_map(lambda a: a[i], pkts))
             self.ba_costs.append(float(packed[i, 12]))
             self.n_valid_corrections += int(packed[i, 13] > 0.5)
         for i in range(T):

@@ -229,6 +229,12 @@ def _feed_scan(cfg: VioConfig, state: VioState, acc_batch, gyro_batch, t_batch,
                                init_count=n_init.to(torch.int32))
 
 
+def _at(a, i):
+    """Row i (a 0-d index tensor) of `a`, with no host read (a 0-d tensor
+    used as a Python index is read on the host)."""
+    return a[i.reshape(1)][0]
+
+
 def find_state_idx(state: VioState, t_query):
     """Ring index of the newest state with t ≤ t_query (first index among
     ties, as jnp.argmin)."""
@@ -255,12 +261,12 @@ def get_frame_state(state: VioState, t_img, T_i_c: SE3) -> FeedforwardPose:
     camera-from-world pose (T_i_c is the camera-in-IMU extrinsic)."""
     t_img = _scalar(t_img, state.t)
     i = find_state_idx(state, t_img)
-    q_w_i, pos = state.q[i], state.pos[i]
+    q_w_i, pos = _at(state.q, i), _at(state.pos, i)
     T_c_w = se3m.inverse(se3m.compose(SE3(q_w_i, pos), T_i_c))
     # No buffered state at or before t_img: argmin over all-inf picked slot 0.
     has_past = torch.any((state.t >= 0) & (state.t <= t_img))
     ok = state.initialized & (state.count > 0) & has_past
-    return FeedforwardPose(T_c_w, q_w_i, pos, state.vel[i], i, ok)
+    return FeedforwardPose(T_c_w, q_w_i, pos, _at(state.vel, i), i, ok)
 
 
 def vision_rp_compensation(q_vision_w_i, q_imu_w_i, blend: float):
@@ -302,7 +308,7 @@ def correction_from_vision(cfg: VioConfig, state: VioState, t_img, T_c_w_vision:
     have_last = (t_last >= 0) & has_last_state & (i_a != i_b) & (dt > eps)
 
     q_BA = so3.mul(so3.conj(T_w_iB.q), state.last_vis_q)
-    q_ba = so3.mul(so3.conj(state.q[i_b]), state.q[i_a])
+    q_ba = so3.mul(so3.conj(_at(state.q, i_b)), _at(state.q, i_a))
     q_Bb = so3.normalize(so3.mul(q_BA, so3.conj(q_ba)))
     dt_safe = torch.where(have_last, dt, torch.ones_like(dt))
     gyro_est = q_Bb[1:4] / dt_safe
@@ -313,7 +319,7 @@ def correction_from_vision(cfg: VioConfig, state: VioState, t_img, T_c_w_vision:
     vel_vis = (T_w_iB.t - state.last_vis_p) / dt_safe
     diff_vel = torch.where(have_last, vel_vis - vel_imu, 0.0)
     i_m = find_state_idx(state, 0.5 * (t_last + t_img))
-    acc_est = -so3.rotate(so3.conj(state.q[i_m]), diff_vel) / dt_safe
+    acc_est = -so3.rotate(so3.conj(_at(state.q, i_m)), diff_vel) / dt_safe
 
     def sat(v, cap):
         n = torch.linalg.vector_norm(v)
@@ -330,10 +336,11 @@ def correction_from_vision(cfg: VioConfig, state: VioState, t_img, T_c_w_vision:
     bias_gyro = torch.where(upd, (1.0 - p3) * state.bias_gyro + p4 * gyro_est,
                             state.bias_gyro)
 
-    newer = (state.t >= state.t[i_b]) & (state.t >= 0)
-    dq = so3.mul(T_w_iB.q, so3.conj(state.q[i_b]))
+    newer = (state.t >= _at(state.t, i_b)) & (state.t >= 0)
+    dq = so3.mul(T_w_iB.q, so3.conj(_at(state.q, i_b)))
     q_new = so3.normalize(so3.mul(dq[None, :], state.q))
-    pos_new = so3.rotate(dq[None, :], state.pos - state.pos[i_b][None, :]) + T_w_iB.t[None, :]
+    pos_new = (so3.rotate(dq[None, :], state.pos - _at(state.pos, i_b)[None, :])
+               + T_w_iB.t[None, :])
     vel_new = state.vel + diff_vel[None, :]
     nw = newer[:, None]
     return dataclasses.replace(

@@ -1,13 +1,16 @@
 """CUDA kernels of the port on the card: each kernel against its plain
 PyTorch version at the shapes the main paths give it, the wrappers'
-refusals, and the two paths (the stereo slice; stereo + IMU + loop)
-launching their kernels.
+refusals, the two paths (the stereo slice; stereo + IMU + loop)
+launching their kernels, and the captured frame step (one CUDA graph a
+frame) against the eager composition.
 
 Needs an NVIDIA GPU; every test skips without one (marker `cuda`).  This
 file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -116,8 +119,13 @@ def test_kernel_wrappers_refuse_bad_input(dev):
 
 def test_slice_launches_both_kernels(dev):
     """A few frames of SlamSystem on the card at a small config: every frame
-    tracks, grad_blur launches once per pyramid level per frame, and the
-    keyframe BA runs through schur_step."""
+    tracks, and the captured step's replays — read from the device, by
+    kernel name, since a replay runs no wrapper — launch grad_blur once per
+    pyramid level per frame and the keyframe BA's schur_step; no wrapper
+    counts a launch during the replays."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from flvis_tpu_torch.config import BackendConfig, FrontendConfig, SystemConfig
     from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig, orbit_trajectory
     from flvis_tpu_torch.geometry import camera
@@ -133,13 +141,19 @@ def test_slice_launches_both_kernels(dev):
                       height=scfg.height, device=dev)
     scene = PlanarScene(scfg, plane_depth=8.0, seed=4)
     frames = [scene.render(R, t)[:2] for (R, t) in orbit_trajectory(8, step=0.03)]
-    g0, s0 = gradpyr.grad_blur_kernel.launches, schur.schur_step_kernel.launches
+    imgs0, imgs1 = (np.stack([f[k] for f in frames]) for k in (0, 1))
     slam = SlamSystem(cfg, cam, device=dev)
-    out = slam.process_frames(np.stack([f[0] for f in frames]),
-                              np.stack([f[1] for f in frames]))
+    slam._captured_step("stereo", (torch.as_tensor(imgs0, device=dev),
+                                   torch.as_tensor(imgs1, device=dev)))
+    g0, s0 = gradpyr.grad_blur_kernel.launches, schur.schur_step_kernel.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        out = slam.process_frames(imgs0, imgs1)
+        torch.cuda.synchronize()
+    names = [e.name for e in p.events() if e.device_type == DeviceType.CUDA]
     assert (out.status == 1).all()
-    assert gradpyr.grad_blur_kernel.launches - g0 == 3 * len(frames)
-    assert schur.schur_step_kernel.launches > s0
+    assert sum("grad_blur_kernel" in n for n in names) == 3 * len(frames)
+    assert sum("schur_reduce_solve" in n for n in names) >= 1
+    assert (gradpyr.grad_blur_kernel.launches, schur.schur_step_kernel.launches) == (g0, s0)
     assert slam.n_valid_corrections >= 1
 
 
@@ -549,9 +563,14 @@ def test_new_kernel_wrappers_refuse_bad_input(dev):
 
 def test_vio_loop_path_launches_its_kernels(dev):
     """The stereo + IMU + loop path at the small config of
-    tests/test_torch_runner.py: imu_chain on every IMU-initialised frame,
-    fastblur and sweep on every keyframe, hamming's match mode on every
-    bucket of verifications."""
+    tests/test_torch_runner.py: imu_chain on every IMU-initialised frame
+    (inside the captured step's replays, so counted from the device's
+    kernel events: a replay runs no wrapper), fastblur and sweep on every
+    keyframe, hamming's match mode on every bucket of verifications (the
+    eager loop node, counted by the wrappers)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from flvis_tpu_torch.config import BackendConfig, FrontendConfig, LoopConfig, SystemConfig
     from flvis_tpu_torch.geometry import camera
     from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig, imu_from_trajectory
@@ -581,13 +600,23 @@ def test_vio_loop_path_launches_its_kernels(dev):
         prev = ft
     kernels = (imu_chain.attitude_chain_kernel, fastblur.fast_score_nms_blur_kernel,
                sweep.sweep_maps_kernel, hamming.mutual_ratio_match_kernel)
-    before = [k.launches for k in kernels]
     slam = SlamSystem(cfg, cam, device=dev, use_imu=True, use_loop=True)
-    out = slam.process_frames_vio(np.stack([f[0] for f in frames]),
-                                  np.stack([f[1] for f in frames]), ts=frame_t,
-                                  imu_acc=accs, imu_gyro=gyros, imu_t=imuts)
-    slam.flush_loop()               # the chunk's loop gate resolves a chunk late
+    imgs0, imgs1 = (np.stack([f[k] for f in frames]) for k in (0, 1))
+    z = functools.partial(torch.zeros, device=dev)
+    slam._captured_step("vio", (torch.as_tensor(imgs0[:1], device=dev),
+                                torch.as_tensor(imgs1[:1], device=dev), z(1), z((1, 16, 3)),
+                                z((1, 16, 3)), z((1, 16)), z((1, 16), dtype=torch.bool)))
+    before = [k.launches for k in kernels]
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        out = slam.process_frames_vio(imgs0, imgs1, ts=frame_t, imu_acc=accs, imu_gyro=gyros,
+                                      imu_t=imuts)
+        slam.flush_loop()           # the chunk's loop gate resolves a chunk late
+        torch.cuda.synchronize()
     d = [k.launches - b for k, b in zip(kernels, before)]
+    # Every imu_chain launch, in the graph or not: its kernels' device events.
+    d[0] = sum(e.device_type() == DeviceType.CUDA
+               and ("imu_feed_kernel" in e.name() or "attitude_chain_kernel" in e.name())
+               for e in p.profiler.kineto_results.events())
     n_kf = int(out.is_keyframe.sum())
     init_frames = int(np.sum(np.cumsum([len(t) for t in imuts])[:-1] >= cfg.vio.init_samples))
     assert (out.status[1:] == 1).all()
@@ -1038,7 +1067,7 @@ def test_verify_bucket_one_launch_no_host_sync(dev):
     """One bucket of 8 pairs: one hamming launch (the match mode, none of
     the matrix mode) and no synchronising CUDA operation, under
     torch.cuda.set_sync_debug_mode("error"); dispatch_verify makes one
-    bucket call per 8 candidates."""
+    bucket call per 8 candidates, the last holding only the real rest."""
     from flvis_tpu_torch.ops.kernels import hamming
 
     lc = _verify_store(dev)
@@ -1062,4 +1091,200 @@ def test_verify_bucket_one_launch_no_host_sync(dev):
     rows = np.asarray([[i, 1.0, 10.0, 0.0] for i, _ in cands], np.float32)
     ks = [j for _, j in cands]
     handle = lc.dispatch_verify(("rows", ks, [0] * 11, [10] * 11, None), rows)
-    assert calls == [8, 8] and handle[1] == cands and tuple(handle[2].shape) == (11, 11)
+    assert calls == [8, 3] and handle[1] == cands and tuple(handle[2].shape) == (11, 11)
+
+
+# ------------------------------------------------ the captured frame step
+def _entry_system(dev, **frontend):
+    """The port's config at the entry configuration's widths
+    (__graft_entry__._small_cfg: 256×192, 64 slots) with a 5-keyframe
+    window, and its camera on dev."""
+    from flvis_tpu_torch.config import BackendConfig, FrontendConfig, SystemConfig
+    from flvis_tpu_torch.geometry import camera
+
+    cfg = SystemConfig(
+        frontend=FrontendConfig(width=256, height=192, num_slots=64, pyramid_levels=3,
+                                per_cell=4, min_distance=10.0, margin=12, lk_radius=7,
+                                lk_iters=6, ransac_hypotheses=32, **frontend),
+        backend=BackendConfig(window_size=5, max_landmarks=256, iters1=8, iters2=4))
+    return cfg, camera.make(200.0, 200.0, 128.0, 96.0, 0.12, width=256, height=192, device=dev)
+
+
+def _entry_frames(n=12, blank=(5, 6)):
+    """n frames of an out-and-back pan (uint8, blank at `blank`: escaped,
+    then FAIL, then re-init) and their IMU packets of at most 16 samples."""
+    from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig, imu_from_trajectory
+
+    scfg = SceneConfig(width=256, height=192, fx=200.0, fy=200.0, cx=128.0, cy=96.0,
+                       baseline=0.12)
+    xs = list(np.linspace(0, 0.3, n // 2)) + list(np.linspace(0.3, 0.02, n - n // 2))
+    poses = [(np.eye(3), -np.asarray([x, 0.0, 0.0])) for x in xs]
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=11)
+    frames = [scene.render(R, t)[:2] for (R, t) in poses]
+    imgs0 = np.stack([np.clip(f[0], 0, 255).astype(np.uint8) for f in frames])
+    imgs1 = np.stack([np.clip(f[1], 0, 255).astype(np.uint8) for f in frames])
+    imgs0[list(blank)] = 0
+    imgs1[list(blank)] = 0
+    t_imu, gyro, acc, frame_t = imu_from_trajectory(poses, fps=20.0)
+    imu, prev = ([], [], []), -np.inf
+    for ft in frame_t:
+        m = (t_imu > prev) & (t_imu <= ft)
+        for lst, a in zip(imu, (acc, gyro, t_imu)):
+            lst.append(a[m][-16:])
+        prev = ft
+    return imgs0, imgs1, np.asarray(frame_t), imu
+
+
+def _chunks(slam, kind, frames, chunk):
+    """Drive slam's process_frames[_vio] over `frames` in chunks; returns the
+    stacked host FrameOutput fields."""
+    imgs0, imgs1, ts, (acc, gyro, it) = frames
+    outs = []
+    for a in range(0, len(imgs0), chunk):
+        sl = slice(a, a + chunk)
+        if kind == "vio":
+            outs.append(slam.process_frames_vio(imgs0[sl], imgs1[sl], ts[sl], acc[sl], gyro[sl],
+                                                it[sl]))
+        else:
+            outs.append(slam.process_frames(imgs0[sl], imgs1[sl], ts[sl]))
+    return outs
+
+
+def _eager_chunks(slam, kind, frames, chunk):
+    """The same chunks through the eager composition (run_chunk_eager over
+    the module-level fused step) on slam's generator: the host
+    FrameOutputs and BA costs."""
+    slam._run_chunk = slam._run_chunk_eager
+    return _chunks(slam, kind, frames, chunk), slam.ba_costs
+
+
+def _assert_same_outputs(got, want):
+    for f in ("status", "is_keyframe", "reset_backend", "num_inliers", "mean_reproj_err"):
+        np.testing.assert_array_equal(np.concatenate([getattr(o, f) for o in got]),
+                                      np.concatenate([getattr(o, f) for o in want]), err_msg=f)
+    for f in ("q", "t"):
+        np.testing.assert_array_equal(np.concatenate([getattr(o.T_c_w, f) for o in got]),
+                                      np.concatenate([getattr(o.T_c_w, f) for o in want]),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("kind", ["stereo", "vio"])
+def test_captured_step_matches_eager(dev, kind):
+    """process_frames[_vio] on the card (one captured graph a step, replayed
+    a frame) against the eager composition on the same draws, over 12
+    frames in chunks of 6 whose blank frames take the status cond's init
+    side inside the graph: every output and BA cost bit for bit."""
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _entry_system(dev)
+    frames = _entry_frames()
+    kw = dict(device=dev, seed=0, use_imu=kind == "vio")
+    slam = SlamSystem(cfg, cam, **kw)
+    got = _chunks(slam, kind, frames, 6)
+    want, costs = _eager_chunks(SlamSystem(cfg, cam, **kw), kind, frames, 6)
+    _assert_same_outputs(got, want)
+    assert slam.ba_costs == costs and len(costs) >= 2
+    status = np.concatenate([o.status for o in got])
+    assert status[6] == 2 and status[7] == 1                   # FAIL, then re-init
+    assert set(slam._captured) == {kind}
+
+
+def test_captured_replays_no_host_sync(dev):
+    """After the capture, a chunk's replays (inputs copied in, draws made,
+    outputs copied out) run under the sync debug mode's "error"."""
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _entry_system(dev)
+    imgs0, imgs1, ts, imu = _entry_frames(blank=())
+    slam = SlamSystem(cfg, cam, device=dev, seed=0, use_imu=True)
+    _chunks(slam, "vio", (imgs0[:4], imgs1[:4], ts[:4], tuple(x[:4] for x in imu)), 4)
+    xs = [torch.as_tensor(a, device=dev) for a in (imgs0[4:], imgs1[4:])]
+    xs.append(torch.as_tensor(ts[4:], dtype=torch.float32, device=dev))
+    from flvis_tpu_torch.pipeline.runner import pack_imu_frames
+
+    xs += [torch.as_tensor(a, device=dev) for a in pack_imu_frames(*(x[4:] for x in imu))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed, pkts, cap = slam._run_chunk("vio", tuple(xs))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cap is slam._captured["vio"] and cap.step.replays == len(imgs0)
+    assert torch.isfinite(packed).all()
+
+
+def test_rare_branches_inside_the_graph(dev):
+    """The PnP rescue (min_inliers above the 64 slots: every tracking frame
+    starves) and the re-initialisation run inside the graph — the taken
+    counts of their IF nodes say so — with the eager composition's bits."""
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _entry_system(dev, min_inliers=65)
+    imgs0, imgs1, ts, imu = _entry_frames(blank=())
+    slam = SlamSystem(cfg, cam, device=dev, seed=0)
+    xs = (torch.as_tensor(imgs0, device=dev), torch.as_tensor(imgs1, device=dev))
+    packed, pkts, cap = slam._run_chunk("stereo", xs)
+    slam._finish_chunk(packed, pkts, cap, xs[0], xs[1], None, len(imgs0))
+    # The status cond (track | init) and the PnP rescue inside its track
+    # side (rescue | keep).
+    taken = cap.step.taken_by_name()
+    assert taken["status"][1] >= 2 and taken["pnp_rescue"][0] >= 2
+    assert sum(taken["status"]) == len(imgs0)
+    want, _ = _eager_chunks(SlamSystem(cfg, cam, device=dev, seed=0), "stereo",
+                            (imgs0, imgs1, ts, imu), len(imgs0))
+    from flvis_tpu_torch.pipeline.runner import _unpack_outputs
+
+    _assert_same_outputs([_unpack_outputs(packed.cpu().numpy())], want)
+
+
+def test_two_systems_capture_side_by_side(dev):
+    """Two systems, each with its own captured step and schur ticket,
+    replaying at once on two streams (pipelined: a chunk's end waits for
+    the next call): both give the eager composition's outputs."""
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _entry_system(dev)
+    frames = _entry_frames(blank=())
+    a, b = (SlamSystem(cfg, cam, device=dev, seed=0, pipelined=True) for _ in range(2))
+    assert a._ticket.data_ptr() != b._ticket.data_ptr()
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    outs = ([], [])
+    imgs0, imgs1, ts, _ = frames
+    for c0 in range(0, 12, 4):
+        for s, slam, st in zip((0, 1), (a, b), streams):
+            with torch.cuda.stream(st):
+                o = slam.process_frames(imgs0[c0:c0 + 4], imgs1[c0:c0 + 4], ts[c0:c0 + 4])
+            if o is not None:
+                outs[s].append(o)
+    for s, slam, st in zip((0, 1), (a, b), streams):
+        with torch.cuda.stream(st):
+            outs[s].append(slam.flush())
+    torch.cuda.synchronize()
+    want, _ = _eager_chunks(SlamSystem(cfg, cam, device=dev, seed=0), "stereo", frames, 4)
+    for got in outs:
+        _assert_same_outputs(got, want)
+
+
+def test_capture_failure_raises(dev, monkeypatch):
+    """A host read inside the step makes its capture fail: process_frames
+    raises in the capture's warm-up, before any capture begins, naming the
+    operation, and nothing runs in the graph's place."""
+    from flvis_tpu_torch.frontend import tracker
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    real = tracker._nanmedian
+
+    def host_read(x, dim=None):
+        out = real(x, dim)
+        float(out.reshape(-1)[0])       # a device value read on the host
+        return out
+
+    monkeypatch.setattr(tracker, "_nanmedian", host_read)
+    cfg, cam = _entry_system(dev)
+    imgs0, imgs1, _, _ = _entry_frames(n=3, blank=())
+    slam = SlamSystem(cfg, cam, device=dev, seed=0)
+    with pytest.raises(RuntimeError, match="the stereo frame step cannot be captured into a "
+                                           "CUDA graph: it reads the host at "
+                                           "aten._local_scalar_dense"):
+        slam.process_frames(imgs0, imgs1)
+    assert slam._captured == {} and slam._frames_processed == 0

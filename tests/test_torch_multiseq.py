@@ -73,6 +73,7 @@ def _jax_draws(mp):
 
     def track_frame(fcfg, cam, state, img0, img1, **kw):
         kw.pop("generator", None)
+        kw.pop("draws", None)      # replaced by the reference's draws
         key = jax.random.fold_in(jax.random.PRNGKey(7), int(state.frame_id))
         h, n = fcfg.ransac_hypotheses, fcfg.num_slots
         lo, hi = fcfg.dummy_depth_range

@@ -75,7 +75,8 @@ def runs():
     real = ttr.track_frame
 
     def with_jax_draws(fcfg, cam, state, img0, img1, **kw):
-        kw.pop("generator")
+        kw.pop("generator", None)
+        kw.pop("draws", None)      # replaced by the reference's draws
         draws = _jax_draws(fcfg, int(state.frame_id), int(state.status))
         return real(fcfg, cam, state, img0, img1, draws=draws, **kw)
 
@@ -182,7 +183,8 @@ def _with_jax_draws():
     real = ttr.track_frame
 
     def with_jax_draws(fcfg, cam, state, img0, img1, **kw):
-        kw.pop("generator")
+        kw.pop("generator", None)
+        kw.pop("draws", None)      # replaced by the reference's draws
         draws = _jax_draws(fcfg, int(state.frame_id), int(state.status))
         return real(fcfg, cam, state, img0, img1, draws=draws, **kw)
 

@@ -246,8 +246,8 @@ def test_verify_device_batch_matches_jax(store_pair, monkeypatch):
 
 
 def test_dispatch_verify_buckets(store_pair, monkeypatch):
-    """10 candidates → two _verify_device_batch calls of 8 (the second padded
-    with its last pair), (10, 11) statistics equal to the per-pair
+    """10 candidates → _verify_device_batch buckets of 8 and 2 (real pairs
+    only, no padding), (10, 11) statistics equal to the per-pair
     _verify_device rows."""
     _, tl = store_pair
     monkeypatch.setattr(tlc, "_verify_scores", _jax_scores)
@@ -264,7 +264,7 @@ def test_dispatch_verify_buckets(store_pair, monkeypatch):
     rows = np.asarray([[i, 1.0, 10.0, 0.0] for i, _ in pairs], np.float32)
     handle = tl.dispatch_verify(("rows", ks, [0] * len(ks), [K] * len(ks), None), rows)
     assert handle[1] == pairs
-    assert calls == [pairs[:8], pairs[8:] + [pairs[-1]] * 6]
+    assert calls == [pairs[:8], pairs[8:]]
     monkeypatch.setattr(tl, "_verify_device_batch", real)
     per_pair = torch.stack([tl._verify_device(i, j) for i, j in pairs])
     assert handle[2].shape == (10, 11)
