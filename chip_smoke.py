@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--parent DIR]
     python3 chip_smoke.py --mma-rates
+    python3 chip_smoke.py --phase-c
 
 Builds the port's CUDA kernels from flvis_tpu_torch/csrc/, holds each
 kernel against its plain PyTorch version at the shapes the main paths give
@@ -23,14 +24,24 @@ paths of the port at the EuRoC-sized bench configuration:
      calls) and the eager composition (a Python loop over
      runner._fused_*_step); both print frames/s, the device busy share,
      host syncs a frame in a chunk's step and device kernel events a frame,
-     the captured run also its graph's kernel nodes and IF bodies run a
-     replay and its capture time, and the run fails unless both give the
-     same outputs, BA costs, closures and ATE bit for bit; between them,
-     the rare branches (blank frames: FAIL and re-init; starved frames: the
-     PnP rescue) run inside the graph against the eager composition;
+     the captured run also its graph's kernel nodes, IF bodies and WHILE
+     iterations run a replay and its capture time, and the run fails unless
+     both give the same outputs, BA costs, closures and ATE bit for bit;
+     between them, the rare branches (blank frames: FAIL and re-init;
+     starved frames: the PnP rescue) run inside the graph against the eager
+     composition;
   c. the multi-sequence composition — MultiSeqSlam(num_seqs=8,
      use_imu=True, use_loop=True, ba_every=2, pipelined=True) over 8 chunks
-     of 8 frames of a 64-frame out-and-back per sequence.
+     of 8 frames of a 64-frame out-and-back per sequence, twice in turn as
+     (a) and (b): the captured step (one graph a frame, the 8 sequences its
+     branches) and the eager loop over the same step; it prints
+     sequence-frames/s, the device busy share, host syncs, the graph's
+     nodes, IF bodies and WHILE iterations a replay, how far the branches
+     overlap (one replay's device time against 8 × a one-branch graph's)
+     and the host time of one cudaGraphLaunch, and fails unless both runs
+     give the same outputs, closures and ATE bit for bit; replays of its
+     graph from one state must give the same bits each time.  Phase c
+     runs in a process of its own (`--phase-c`, see phase_c).
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after (a captured step is captured before that, its warm-up's
@@ -44,8 +55,8 @@ its replays), and PGO on the headline's last pose graph, run twice more,
 gives the headline's own bits.  Phases b and c print the loop
 node's verification per verified pair (synced ms, device events) and the
 accepted closures; with --parent DIR, phases b and c of the port in DIR (a
-`git archive` of another commit, run in a subprocess with this script's
-probes) follow, and both trees' readings stand side by side.  Exits
+`git archive` of another commit, each run in a subprocess with this
+script's probes) follow, and both trees' readings stand side by side.  Exits
 non-zero, printing no result, if there is no CUDA device or any phase
 fails.  The second-to-last lines hold the kernel table (JSON) and the
 card's name and power limit; the last line is
@@ -978,32 +989,40 @@ LAUNCH_GLOBALS = {k: v[:1] if k == "schur_step" else v for k, v in KERNEL_FNS.it
 
 def replay_launches(avg, before) -> dict:
     """{kernel: launches of a captured step's replays in a profiled window}:
-    its device events in the window's profile (key averages `avg`), less
-    the launches its wrappers counted in the window (`before`: read_counts()
-    at its start), which ran outside the graph.  A replay runs no wrapper,
-    so this is the only count of a replay's launches."""
+    its device events in the window's profile (key averages `avg`, or a
+    {device event name: count} mapping), less the launches its wrappers
+    counted in the window (`before`: read_counts() at its start), which ran
+    outside the graph.  A replay runs no wrapper, so this is the only count
+    of a replay's launches."""
+    if not isinstance(avg, dict):
+        avg = {e.key: e.count for e in avg if e.device_type.name == "CUDA"}
     after = read_counts()
-    events = {k: sum(e.count for e in avg if e.device_type.name == "CUDA"
-                     and any(f in e.key for f in fns)) for k, fns in LAUNCH_GLOBALS.items()}
+    events = {k: sum(n for key, n in avg.items() if any(f in key for f in fns))
+              for k, fns in LAUNCH_GLOBALS.items()}
     return {k: events[k] - (after[k] - before[k]) for k in events}
 
 
-def capture_first(slam, kind, label, imgs0, imgs1) -> None:
-    """Capture slam's `kind` step before its main path (on a frame of the
-    path's shapes; each chunk copies the state in), and print what the
+def frame_inputs(device, imgs0, imgs1, kind):
+    """A SlamSystem step's inputs of one frame of the path's shapes (the
+    images' first frame; zeros for an IMU packet)."""
+    xs = [torch.as_tensor(imgs0[:1], device=device), torch.as_tensor(imgs1[:1], device=device)]
+    if kind == "vio":
+        xs += [torch.zeros(1, device=device), torch.zeros((1, 16, 3), device=device),
+               torch.zeros((1, 16, 3), device=device), torch.zeros((1, 16), device=device),
+               torch.zeros((1, 16), dtype=torch.bool, device=device)]
+    return tuple(xs)
+
+
+def capture_first(slam, kind, label, xs) -> None:
+    """Capture slam's `kind` step before its main path (on inputs xs of
+    the path's shapes; each chunk copies the state in), and print what the
     capture's eager warm-up launched and its wrappers' calls during the
     capture, on a line of their own: the main path's counts start after
     them.  A tree without a captured step captures nothing."""
     if not hasattr(slam, "_captured_step"):
         return
-    dev = slam.device
-    xs = [torch.as_tensor(imgs0[:1], device=dev), torch.as_tensor(imgs1[:1], device=dev)]
-    if kind == "vio":
-        xs += [torch.zeros(1, device=dev), torch.zeros((1, 16, 3), device=dev),
-               torch.zeros((1, 16, 3), device=dev), torch.zeros((1, 16), device=dev),
-               torch.zeros((1, 16), dtype=torch.bool, device=dev)]
     reset_counts()
-    st = slam._captured_step(kind, tuple(xs)).step
+    st = slam._captured_step(kind, xs).step
     torch.cuda.synchronize()
     print(f"{label} capture, before the main path: warm-up {st.seconds['warmup']:.2f} s "
           f"({st.WARMUP} eager steps, both sides of every cond), capture "
@@ -1081,23 +1100,62 @@ def profile_window(run):
     return wall, dev_ms, n_events, avg
 
 
+def device_window(run):
+    """run() under torch.profiler, its events read raw (a chunk of (c)
+    holds ~10^6 of them, too many for key_averages): (wall ms, device event
+    time summed ms, the union of the device events' intervals ms, device
+    events, {device event name: count}).  Host and device activities, as
+    profile_window traces."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        run()
+        wall = 1000.0 * (time.perf_counter() - t0)
+    spans, names = [], collections.Counter()
+    for e in p.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            spans.append((e.start_ns(), e.end_ns()))
+            names[e.name()] += 1
+    spans.sort()
+    union, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    summed = sum(b - a for a, b in spans)
+    return wall, summed / 1e6, union / 1e6, len(spans), dict(names)
+
+
 def graph_report(slam, label) -> dict:
     """Print and return the captured steps' readings: warm-up and capture
-    seconds, the graph's nodes, kernel nodes run and IF bodies run a replay,
-    and each cond's taken counts (true, false)."""
+    seconds, the graph's nodes, kernel nodes, IF bodies and WHILE iterations
+    run a replay, and each site's taken counts (an IF's (true, false), a
+    WHILE's (iterations, entries)).  A tree whose node_stats has no WHILE
+    count reads 0 there."""
     out = {}
     for kind, cap in getattr(slam, "_captured", {}).items():
         st = cap.step
-        nodes, bodies = st.node_stats()
+        nodes, bodies, iterations = (tuple(st.node_stats()) + (0.0,))[:3]
         taken = st.taken_by_name()
-        out[kind] = {"kernel_nodes": nodes, "if_bodies": bodies, "taken": taken,
-                     "replays": st.replays, **st.seconds}
+        out[kind] = {"kernel_nodes": nodes, "if_bodies": bodies, "while_iterations": iterations,
+                     "taken": taken, "sites": len(st.sites), "replays": st.replays,
+                     **st.seconds}
+        sites = {}
+        for x in st.sites:
+            key = (x.get("kind", "if"), x["name"], x["nodes"][0]["kernel"],
+                   x["nodes"][1]["kernel"])
+            sites[key] = sites.get(key, 0) + 1
         print(f"{label} captured {kind} step: warm-up {st.seconds['warmup']:.2f} s, capture "
               f"{st.seconds['capture']:.2f} s (once); graph top level {st.top_nodes}; "
-              f"{len(st.sites)} conds (IF bodies' kernel nodes true/false: "
-              f"{[(x['name'], x['nodes'][0]['kernel'], x['nodes'][1]['kernel']) for x in st.sites]}"
-              f"); a replay ran {nodes:.1f} kernel nodes and {bodies:.2f} IF bodies over "
-              f"{st.replays} replays; taken (true, false) {taken} [{SMI}]")
+              f"{len(st.sites)} sites ((kind, name, body kernel nodes true|iteration, "
+              f"false): count {sites}); a replay ran {nodes:.1f} kernel nodes, {bodies:.2f} IF "
+              f"bodies and {iterations:.2f} WHILE iterations over {st.replays} replays; taken "
+              f"{taken} [{SMI}]")
     return out
 
 
@@ -1154,7 +1212,7 @@ def run_slice(cfg, scfg, cam, device, eager: bool = False):
     if eager:
         use_eager_chunks(slam)
     else:
-        capture_first(slam, "stereo", label, imgs0, imgs1)
+        capture_first(slam, "stereo", label, frame_inputs(device, imgs0, imgs1, "stereo"))
     syncs = {}
     count_chunk_syncs(slam, 2, syncs)
     reset_counts()
@@ -1483,7 +1541,7 @@ def run_headline(cfg, scfg, cam, device, eager: bool = False):
     if eager:
         use_eager_chunks(slam)
     else:
-        capture_first(slam, "vio", label, imgs0, imgs1)
+        capture_first(slam, "vio", label, frame_inputs(device, imgs0, imgs1, "vio"))
     lc = slam.loop_closer
     timer = StageTimer()
     accepted = []
@@ -1670,17 +1728,13 @@ def closure_errors(lc, C_gt):
     return out
 
 
-def run_multiseq(cfg, scfg, cam, device):
-    """MultiSeqSlam(num_seqs=8, use_imu=True, use_loop=True, ba_every=2,
-    pipelined=True) over 8 chunks of 8 frames: each sequence a 64-frame
-    out-and-back (0 → 0.6 m → back, plane at 8 m) with its IMU; sequences
-    2..7 rolled horizontally by 7·s px (bench.py:411-418), sequences 0 and 1
-    the same frames (every sequence draws from the same seed).  Returns the
-    launch counts of the run."""
-    import dataclasses
-
+def multiseq_sequence(scfg):
+    """Phase c's input: S = MS_SEQS sequences of a 64-frame out-and-back (0
+    → 0.6 m → back, plane at 8 m) with IMU; sequences 2..S-1 rolled
+    horizontally by 7·s px (bench.py:411-418), 0 and 1 the same frames.
+    Returns (poses, imgs0, imgs1 (S, n, H, W), ts (S, n), per-chunk IMU
+    packets (S, T, 16, ·), path length)."""
     from flvis_tpu_torch.io.synthetic import PlanarScene, imu_from_trajectory
-    from flvis_tpu_torch.parallel.multiseq_loop import MultiSeqSlam
     from flvis_tpu_torch.pipeline.runner import pack_imu_frames
 
     S, T, n = MS_SEQS, MS_CHUNK, MS_CHUNK * MS_CHUNKS
@@ -1705,58 +1759,214 @@ def run_multiseq(cfg, scfg, cam, device):
 
     imu = [tuple(bc(a) for a in pack_imu_frames(accs[c:c + T], gyros[c:c + T],
                                                 imuts[c:c + T], 16)) for c in range(0, n, T)]
-    ts = bc(np.asarray(frame_t, np.float32))
+    return poses, imgs0, imgs1, bc(np.asarray(frame_t, np.float32)), imu, path
+
+
+def multiseq_config(cfg):
     # 64 frames hold ~20 keyframes: the loop gate starts at keyframe 10 and
     # searches 8 behind (tests/test_multiseq_loop.py:44-48), not 50/50.
-    mcfg = cfg.replace(loop=dataclasses.replace(cfg.loop, kf_start=10, kf_dist=8))
+    import dataclasses
+
+    return cfg.replace(loop=dataclasses.replace(cfg.loop, kf_start=10, kf_dist=8))
+
+
+def chunk_inputs(device, imgs0, imgs1, ts, imu, k):
+    """Chunk k of phase c as MultiSeqSlam._run_chunk takes it: (S, T, ...)
+    tensors on the device."""
+    sl = slice(k * MS_CHUNK, (k + 1) * MS_CHUNK)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                 for a in (imgs0[:, sl], imgs1[:, sl], ts[:, sl]) + tuple(imu[k]))
+
+
+def replay_readings(step, reps: int = 5):
+    """(device ms, host ms) of one replay of a captured step on the inputs
+    it holds, each the median of `reps` replays from one state (the carry
+    copied back in before each): a replay is enqueued while the card sleeps
+    0.25 s, so its CUDA-event time is the graph's own device time, not its
+    launch's; the host time is the cudaGraphLaunch call's.  Fails unless
+    every replay gives the first one's carry and outputs bit for bit (a
+    race between the graph's branches would show as a difference).  The
+    carry and the taken counts are left as they were."""
+    from flvis_tpu_torch.utils.tree import tree_leaves
+
+    snap = [t.clone() for t in tree_leaves(step.carry)]
+    taken = step.taken.clone()
+    dev, host, bits = [], [], []
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(reps):
+        for d, s in zip(tree_leaves(step.carry), snap):
+            d.copy_(s)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(0.25 * sm_clock_mhz() * 1e6))
+        e0.record()
+        t0 = time.perf_counter()
+        step.graph.replay()
+        host.append(1000.0 * (time.perf_counter() - t0))
+        e1.record()
+        torch.cuda.synchronize()
+        dev.append(e0.elapsed_time(e1))
+        bits.append(torch.cat([t.reshape(-1).view(torch.uint8)
+                               for t in tree_leaves((step.carry, step.ys))]))
+    if not all(torch.equal(b, bits[0]) for b in bits):
+        fail(f"{step.name}: {reps} replays from one state gave different bits")
+    for d, s in zip(tree_leaves(step.carry), snap):
+        d.copy_(s)
+    step.taken.copy_(taken)
+    torch.cuda.synchronize()
+    return statistics.median(dev), statistics.median(host)
+
+
+def branch_concurrency(cfg, cam, device, ms, imgs0, imgs1, ts, imu) -> dict:
+    """How far the S branches of ms's captured graph run side by side: one
+    replay's device time against S × that of a one-branch graph of the
+    same step (MultiSeqSlam(num_seqs=1) over sequence 0's frames, captured
+    and run to the same frame), both on their last frame from their last
+    state (a window-solve frame), and each graph's cudaGraphLaunch host
+    time."""
+    from flvis_tpu_torch.parallel.multiseq_loop import MultiSeqSlam
+
+    one = MultiSeqSlam(cfg, cam, num_seqs=1, use_imu=True, use_loop=False, ba_every=2,
+                       device=device)
+    for k in range(MS_CHUNKS):
+        xs = tuple(x[:1] for x in chunk_inputs(device, imgs0, imgs1, ts, imu, k))
+        one._run_chunk("vio", xs)
+    S = ms.S
+    dev_s, host_s = replay_readings(ms._captured["vio"].step)
+    dev_1, host_1 = replay_readings(one._captured["vio"].step)
+    out = {"replay_ms": dev_s, "one_branch_ms": dev_1, "overlap": S * dev_1 / dev_s,
+           "launch_host_ms": host_s, "one_branch_launch_host_ms": host_1}
+    print(f"multi-sequence branch concurrency: one replay of the {S}-branch graph "
+          f"{dev_s:.2f} ms on the device against {S} x the 1-branch graph's {dev_1:.2f} ms = "
+          f"{S * dev_1:.2f} ms: the branches overlap {out['overlap']:.2f}x ({S:.1f}x is full "
+          f"overlap, 1.0x none); host time of one cudaGraphLaunch {host_s:.2f} ms ({S} "
+          f"branches) and {host_1:.2f} ms (1 branch); 1-branch capture "
+          f"{one._captured['vio'].step.seconds} [{SMI}]")
+    return out
+
+
+MS_SYNC_CHUNK, MS_PROFILE_CHUNK = 1, 3
+
+
+def run_multiseq(cfg, scfg, cam, device, eager: bool = False):
+    """MultiSeqSlam(num_seqs=8, use_imu=True, use_loop=True, ba_every=2,
+    pipelined=True) over 8 chunks of 8 frames (multiseq_sequence) — the
+    captured step (one graph a frame, the 8 sequences its branches), or
+    with `eager` the eager loop over the same step on the same frames and
+    draws (a tree without a captured step runs its own).  Chunks: the
+    first, one whose step's host syncs are counted, one profiled, the timed
+    rest (+ flush).  Returns the run's readings: packed outputs, closures,
+    ATE, launches, sequence-frames/s, busy share, syncs, the verification
+    summary."""
+    from flvis_tpu_torch.parallel.multiseq_loop import MultiSeqSlam
+
+    label = "multi-sequence eager" if eager else "multi-sequence"
+    S, T, n = MS_SEQS, MS_CHUNK, MS_CHUNK * MS_CHUNKS
+    poses, imgs0, imgs1, ts, imu, path = multiseq_sequence(scfg)
+    mcfg = multiseq_config(cfg)
     ms = MultiSeqSlam(mcfg, cam, num_seqs=S, use_imu=True, use_loop=True, ba_every=2,
                       pipelined=True, device=device)
+    if eager:
+        use_eager_chunks(ms)
+    else:
+        capture_first(ms, "vio", label, chunk_inputs(device, imgs0, imgs1, ts, imu, 0))
     timer = StageTimer()
-    wrap_frame_stages(timer)
+    if eager or not hasattr(ms, "_captured_step"):
+        wrap_frame_stages(timer)
     accepted = [[] for _ in ms.loopers]
     for lc, acc in zip(ms.loopers, accepted):
         wrap_loop_node(timer, lc, acc)
+    syncs = {}
+    if hasattr(ms, "_run_chunk"):
+        count_chunk_syncs(ms, MS_SYNC_CHUNK + 1, syncs)
     reset_counts()
-    torch.cuda.synchronize()
+    rets, timed_s, timed_frames, first_s = [], 0.0, 0, 0.0
+    replayed, prof = {k: 0 for k in KERNEL_FNS}, None
     t0 = time.perf_counter()
-    rets = []
-    for k, c in enumerate(range(0, n, T)):
-        rets.append(ms.process_chunk_vio(imgs0[:, c:c + T], imgs1[:, c:c + T], ts[:, c:c + T],
-                                         *imu[k]))
+    for k in range(MS_CHUNKS):
+        sl = slice(k * T, (k + 1) * T)
+
+        def run(sl=sl, k=k):
+            tc, pc = time.perf_counter(), timer.probe_s
+            rets.append(ms.process_chunk_vio(imgs0[:, sl], imgs1[:, sl], ts[:, sl], *imu[k]))
+            torch.cuda.synchronize()
+            return time.perf_counter() - tc - (timer.probe_s - pc)
+
+        torch.cuda.synchronize()
+        if k in (MS_SYNC_CHUNK, MS_PROFILE_CHUNK):
+            # Kept out of the stage timer: its synced calls would count as
+            # the chunk's host syncs, and the profiler slows them.
+            timer.on = False
+            if k == MS_SYNC_CHUNK:
+                run()
+            else:
+                c0 = read_counts()
+                prof = device_window(run)
+                replayed = replay_launches(prof[4], c0)
+            timer.on = True
+        elif k == 0:
+            first_s = run()
+        else:
+            timed_s += run()
+            timed_frames += T
+    tc, pc = time.perf_counter(), timer.probe_s
     rets.append(ms.flush())
     torch.cuda.synchronize()
+    timed_s += time.perf_counter() - tc - (timer.probe_s - pc)
     wall = time.perf_counter() - t0 - timer.probe_s
-    launches = read_counts()
+    counted = read_counts()
+    captured = bool(getattr(ms, "_captured", None))
+    launches = path_launches(counted, replayed, captured)
     timer.restore()
 
     outs = [r for r in rets if r is not None]
-    status = np.concatenate([o[:, :, 2] for o in outs], axis=1).astype(np.int32)
+    packed = np.concatenate(outs, axis=1)
+    status = packed[:, :, 2].astype(np.int32)
     C_gt = np.asarray([-R.T @ t for (R, t) in poses])
     bound_m = 0.02 * path + 0.01
     ates = [ate(ms.trajectory_cam_centers(s), C_gt) for s in range(S)]
     ates_cor = [ate(ms.trajectory_cam_centers(s, loop_corrected=True), C_gt) for s in range(S)]
     pairs = [[(c.kf_i, c.kf_j) for c in lc.closures] for lc in ms.loopers]
+    frame_ms = 1000.0 * timed_s / timed_frames
+    p_wall, p_sum, p_union, p_events, _ = prof
+    r = {"packed": packed, "ate": (ates, ates_cor), "keyframes": [lc.count for lc in ms.loopers],
+         "closures": [[tuple(c[:4]) for c in seq] for seq in accepted],
+         "fps": S * timed_frames / timed_s, "busy": p_union / T / frame_ms,
+         "overlap_profiled": p_sum / max(p_union, 1e-9), "launches": launches,
+         "syncs_per_frame": syncs["syncs"] / T if syncs else float("nan"),
+         "events_per_frame": p_events / T, "first_chunk_s": first_s}
     staged = sum(v for k, v in timer.ms.items() if k not in NESTED)
-    print(f"multi-sequence: {S} sequences x {n} frames in {len(outs)} chunks of {T}, "
-          f"{S * n / wall:.2f} sequence-frames/s ({wall:.1f} s, stage probes' "
-          f"{timer.probe_s:.1f} s left out), keyframes "
-          f"{[lc.count for lc in ms.loopers]}, closures {[len(p) for p in pairs]}")
-    print(f"multi-sequence ATE per sequence (bound {bound_m:.5f} over a {path:.2f} m path): "
+    print(f"{label}: {S} sequences x {n} frames in {len(outs)} chunks of {T}, "
+          f"{r['fps']:.2f} sequence-frames/s over chunks 2, 4..{MS_CHUNKS - 1} + flush "
+          f"({frame_ms:.1f} ms a frame of the {S} sequences; {S * n / wall:.2f} over the whole "
+          f"run, {wall:.1f} s, stage probes' {timer.probe_s:.1f} s left out; first chunk "
+          f"{first_s:.2f} s), keyframes {r['keyframes']}, closures {[len(p) for p in pairs]}")
+    print(f"{label} profile, chunk {MS_PROFILE_CHUNK} (frames {MS_PROFILE_CHUNK * T}.."
+          f"{(MS_PROFILE_CHUNK + 1) * T - 1}): wall {p_wall:.1f} ms with the profiler on, "
+          f"{p_events} device events, their time summed {p_sum:.1f} ms and as a union of "
+          f"intervals {p_union:.1f} ms ({r['overlap_profiled']:.2f} events in flight on "
+          f"average) -> device busy {r['busy']:.3f} of the timed frames' {frame_ms:.1f} ms; "
+          f"{r['syncs_per_frame']:.2f} host syncs a frame in chunk {MS_SYNC_CHUNK}'s step "
+          f"[{SMI}]")
+    print(f"{label} ATE per sequence (bound {bound_m:.5f} over a {path:.2f} m path): "
           f"odometry {[round(a, 5) for a in ates]}, loop-corrected "
           f"{[round(a, 5) for a in ates_cor]}; sequence 0 closures {pairs[0][:6]}...")
-    print("multi-sequence stages, synced host ms in all (per call x calls): "
+    print(f"{label} stages, synced host ms in all (per call x calls): "
           + ", ".join(f"{k} {timer.ms[k]:.0f} ({timer.ms[k] / timer.calls[k]:.2f} "
                       f"x{timer.calls[k]})" for k in timer.ms)
           + f"; outside these stages {1000.0 * wall - staged:.0f}")
-    print(f"multi-sequence {timer.probe_line('vimotion.imu_feed_batch')}")
-    verify = verification_summary(timer, accepted, "multi-sequence")
-    print(f"multi-sequence launches: {launches}")
+    if "vimotion.imu_feed_batch" in timer.ms:
+        print(f"{label} {timer.probe_line('vimotion.imu_feed_batch')}")
+    verify = verification_summary(timer, accepted, label)
+    r["verify"] = verify
+    r["graph"] = graph_report(ms, label)
+    print(launch_line(label, counted, replayed, captured, f"{MS_PROFILE_CHUNK * T}.."
+                      f"{(MS_PROFILE_CHUNK + 1) * T - 1}"))
     for s, lc in enumerate(ms.loopers):
         errs = closure_errors(lc, C_gt)
         if not errs:
             continue                    # fails below: every sequence must close
         worst = max(errs, key=lambda e: e[2])
-        print(f"multi-sequence closures of sequence {s}: |T_map_odom.t| "
+        print(f"{label} closures of sequence {s}: |T_map_odom.t| "
               f"{float(torch.linalg.vector_norm(lc.T_map_odom.t)):.5f} m; translation error "
               f"against the ground truth, loop edges mean "
               f"{np.mean([e[2] for e in errs]):.5f} / max {worst[2]:.5f} m (pair "
@@ -1764,28 +1974,102 @@ def run_multiseq(cfg, scfg, cam, device):
               f"{np.mean([e[3] for e in errs]):.5f} / max {max(e[3] for e in errs):.5f} m; "
               f"pairs {[e[:2] for e in errs]}")
     if status.shape != (S, n) or not np.all(status[:, 1:] == 1):
-        fail(f"multi-sequence frames not TRACKING: {np.argwhere(status[:, 1:] != 1).tolist()}")
+        fail(f"{label} frames not TRACKING: {np.argwhere(status[:, 1:] != 1).tolist()}")
     if not all(a < bound_m and b < bound_m for a, b in zip(ates, ates_cor)):
-        fail(f"multi-sequence ATE {ates} / loop-corrected {ates_cor} over bound {bound_m}")
+        fail(f"{label} ATE {ates} / loop-corrected {ates_cor} over bound {bound_m}")
     if not all(pairs):
-        fail(f"a sequence accepted no loop closure: {[len(p) for p in pairs]}")
+        fail(f"{label}: a sequence accepted no loop closure: {[len(p) for p in pairs]}")
     same = all(np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
                for a, b in zip(ms.trajectories[0], ms.trajectories[1]))
     if not (same and pairs[0] == pairs[1]):
-        fail("sequences 0 and 1 (same frames, same draws) differ")
+        fail(f"{label}: sequences 0 and 1 (same frames, same draws) differ")
     for name in ("bowassign", "gather"):
         if launches[name] < 1:
-            fail(f"{name} never launched on the multi-sequence path")
+            fail(f"{name} never launched on the {label} path")
     if launches["hamming"] < verify["calls"]:
         fail(f"hamming launched {launches['hamming']} times < {verify['calls']} verification "
              "calls")
-    return launches, verify
+    if captured:
+        check_in_graph(label, replayed, IN_GRAPH)
+        if syncs["syncs"]:
+            fail(f"{label}: {syncs['syncs']} host syncs in a captured chunk's step")
+        r["concurrency"] = branch_concurrency(mcfg, cam, device, ms, imgs0, imgs1, ts, imu)
+    return r
 
 
-def run_phases_of(tree: str) -> int:
-    """Phases (b) and (c) of the port in `tree` (a checkout, e.g. a `git
-    archive` of a parent commit) with this script's stage probes; the last
-    line of output is a JSON object of their verification summaries."""
+def compare_multiseq(cap, eag) -> None:
+    """Fail unless phase c's captured and eager runs gave the same packed
+    outputs (statuses, poses, keyframes, inliers, errors), keyframe counts,
+    closures (i, j, n_match, n_inl) and ATE, bit for bit."""
+    diff = [k for k, a, b in (("outputs", cap["packed"], eag["packed"]),)
+            if not np.array_equal(a, b)]
+    diff += [k for k in ("keyframes", "closures", "ate") if cap[k] != eag[k]]
+    n = sum(len(c) for c in cap["closures"])
+    print(f"multi-sequence: captured vs eager over {cap['packed'].shape[:2]} sequence-frames, "
+          f"{n} closures: {'bit-equal' if not diff else 'DIFFERENT in ' + ', '.join(diff)}")
+    if diff:
+        fail(f"multi-sequence: the captured and the eager run differ in {diff}")
+
+
+def phase_c() -> int:
+    """--phase-c: phase c, captured then eager, compared; the last line of
+    output is a JSON object of the captured run's launches and
+    verification summary.  main() runs it in a process of its own, whose
+    graph is captured before the process's first trace: an 8-branch graph
+    of (c)'s size, captured after torch.profiler had traced in the process,
+    hits an illegal address when its replays are traced (torch 2.11, CUDA
+    12.8, H100; tools/torch_profiler_fault.py)."""
+    from flvis_tpu_torch.ops.kernels import _build
+
+    global SMI
+    SMI = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    device = torch.device("cuda", 0)
+    _build.load_library()
+    cfg, scfg = system_config()
+    cam = make_camera(scfg, device)
+    ms_r = run_multiseq(cfg, scfg, cam, device)
+    ms_e = run_multiseq(cfg, scfg, cam, device, eager=True)
+    compare_multiseq(ms_r, ms_e)
+    phase_c_line(ms_r, ms_e)
+    print(json.dumps({"launches": ms_r["launches"], "verify": ms_r["verify"]}))
+    return 0
+
+
+def run_own_process(*args) -> dict:
+    """This script with `args` in a process of its own, its output shown as
+    it printed it; returns its last line's readings."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), *args],
+                          capture_output=True, text=True)
+    lines = proc.stdout.splitlines()
+    print("\n".join(lines[:-1] if proc.returncode == 0 else lines), flush=True)
+    print(proc.stderr, file=sys.stderr, end="", flush=True)
+    if proc.returncode != 0:
+        fail(f"{' '.join(args)} failed ({proc.returncode})")
+    return json.loads(lines[-1])
+
+
+def phase_c_line(ms_r, ms_e) -> None:
+    """Phase c's captured run beside its eager one, as phases a and b's."""
+    g, c = next(iter(ms_r["graph"].values())), ms_r["concurrency"]
+    print(f"phase c captured vs eager, same call: sequence-frames/s {ms_r['fps']:.2f} vs "
+          f"{ms_e['fps']:.2f} ({ms_r['fps'] / ms_e['fps']:.2f}x); device busy "
+          f"{ms_r['busy']:.3f} vs {ms_e['busy']:.3f}; host syncs a frame in a chunk's step "
+          f"{ms_r['syncs_per_frame']:.2f} vs {ms_e['syncs_per_frame']:.2f}; device events a "
+          f"frame of the {MS_SEQS} sequences {ms_r['events_per_frame']:.0f} vs "
+          f"{ms_e['events_per_frame']:.0f}; a replay {g['kernel_nodes']:.1f} graph kernel "
+          f"nodes, {g['if_bodies']:.2f} IF bodies and {g['while_iterations']:.2f} WHILE "
+          f"iterations over {g['sites']} sites; branches overlap {c['overlap']:.2f}x; one "
+          f"cudaGraphLaunch {c['launch_host_ms']:.2f} ms on the host; capture "
+          f"{g['warmup']:.2f} s warm-up + {g['capture']:.2f} s [{SMI}]")
+
+
+def run_phase_of(tree: str, phase: str) -> int:
+    """Phase `phase` (b or c) of the port in `tree` (a checkout, e.g. a
+    `git archive` of a parent commit) with this script's stage probes; the
+    last line of output is a JSON object of its verification summary.
+    compare_with_parent runs each phase in a process of its own, as main()
+    runs this tree's phase c (phase_c)."""
     sys.path.insert(0, str(Path(tree).resolve()))
     import flvis_tpu_torch
     from flvis_tpu_torch.ops.kernels import _build
@@ -1799,25 +2083,26 @@ def run_phases_of(tree: str) -> int:
                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
     cfg, scfg = system_config()
     cam = make_camera(scfg, device)
-    vb = run_headline(cfg, scfg, cam, device)["verify"]
-    _, vc = run_multiseq(cfg, scfg, cam, device)
-    print(json.dumps({"b": vb, "c": vc}))
+    run = run_headline if phase == "b" else run_multiseq
+    print(json.dumps(run(cfg, scfg, cam, device)["verify"]))
     return 0
 
 
 def compare_with_parent(tree: str, ours: dict) -> None:
-    """Phases (b) and (c) of the tree at `tree` in a subprocess (its output
-    shown under "parent|"), then its verification readings and closures
-    beside this tree's: synced ms and device events per verified pair, and
-    the accepted closures' (i, j), n_match, n_inl and T_ij."""
+    """Phases (b) and (c) of the tree at `tree`, each in a subprocess (its
+    output shown under "parent|"), then its verification readings and
+    closures beside this tree's: synced ms and device events per verified
+    pair, and the accepted closures' (i, j), n_match, n_inl and T_ij."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phases-of", tree],
-                          capture_output=True, text=True)
-    for line in proc.stdout.splitlines()[:-1] + proc.stderr.splitlines():
-        print(f"parent| {line}")
-    if proc.returncode != 0:
-        fail(f"the phases of {tree} failed ({proc.returncode})")
-    theirs = json.loads(proc.stdout.splitlines()[-1])
+    theirs = {}
+    for ph in ("b", "c"):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase-of",
+                               tree, ph], capture_output=True, text=True)
+        for line in proc.stdout.splitlines()[:-1] + proc.stderr.splitlines():
+            print(f"parent| {line}")
+        if proc.returncode != 0:
+            fail(f"phase {ph} of {tree} failed ({proc.returncode})")
+        theirs[ph] = json.loads(proc.stdout.splitlines()[-1])
     ours = json.loads(json.dumps(ours))          # tuples as the parent's JSON lists
     print(f"phases b and c of {tree}: {time.perf_counter() - t0:.1f} s")
     for ph in ("b", "c"):
@@ -1943,8 +2228,10 @@ def mma_rates() -> int:
 
 def main() -> int:
     args = sys.argv[1:]
-    if args[:1] == ["--phases-of"] and len(args) == 2:
-        return run_phases_of(args[1])
+    if args[:1] == ["--phase-of"] and len(args) == 3 and args[2] in ("b", "c"):
+        return run_phase_of(args[1], args[2])
+    if args == ["--phase-c"]:
+        return phase_c()
     if args and not (args[:1] == ["--parent"] and len(args) == 2 or args == ["--mma-rates"]):
         print("usage: python3 chip_smoke.py [--parent DIR | --mma-rates]", file=sys.stderr)
         return 2
@@ -2022,6 +2309,10 @@ def main() -> int:
     if not same:
         fail("headline: the captured and the eager run closed other loops or another ATE")
     print(f"phase b, headline, captured and eager: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ms_r = run_own_process("--phase-c")
+    print(f"phase c, multi-sequence, captured and eager (its own process): "
+          f"{time.perf_counter() - t0:.1f} s")
     for ph, r, e in (("a", slice_r, slice_e), ("b", head_r, head_e)):
         g = next(iter(r["graph"].values()))
         print(f"phase {ph} captured vs eager, same call: frames/s {r['fps']:.2f} vs "
@@ -2029,13 +2320,12 @@ def main() -> int:
               f"{e['busy']:.3f}; host syncs a frame in a chunk's step {r['syncs_per_frame']:.2f} "
               f"vs {e['syncs_per_frame']:.2f}; device kernel events a frame "
               f"{r['events_per_frame']:.0f} vs {e['events_per_frame']:.0f}; a replay "
-              f"{g['kernel_nodes']:.1f} graph kernel nodes and {g['if_bodies']:.2f} IF bodies; "
+              f"{g['kernel_nodes']:.1f} graph kernel nodes, {g['if_bodies']:.2f} IF bodies and "
+              f"{g['while_iterations']:.2f} WHILE iterations; "
               f"capture {g['warmup']:.2f} s warm-up + {g['capture']:.2f} s [{SMI}]")
-    t0 = time.perf_counter()
-    ms_launches, verify_c = run_multiseq(cfg, scfg, cam, device)
-    print(f"phase c, multi-sequence: {time.perf_counter() - t0:.1f} s")
+    ms_launches = ms_r["launches"]
     if args:
-        compare_with_parent(args[1], {"b": head_r["verify"], "c": verify_c})
+        compare_with_parent(args[1], {"b": head_r["verify"], "c": ms_r["verify"]})
     slice_launches, head_launches = slice_r["launches"], head_r["launches"]
 
     # Launches on the path each kernel belongs to: the slice for rows 1-2,

@@ -24,11 +24,30 @@ Precision: importing this package sets
 convolutions on the card run in full float32 — the JAX package pins
 `precision="highest"` on every solver contraction, and TF32 (about three
 decimal digits) would break the normal equations of the two BA solvers.
+
+Profiling: importing this package also sets the environment variables
+TEARDOWN_CUPTI=0 and DISABLE_CUPTI_LAZY_REINIT=1 where the caller has not
+set them, as torch does for its own CUDA graphs (torch/profiler/
+profiler.py, when inductor captures).  With CUPTI torn down after a trace
+and set up again, a captured step's replays hit an illegal address under
+torch.profiler (a MultiSeqSlam of one sequence on the card), and later
+traces miss the graphs' kernels; kept up, neither happens
+(tools/torch_profiler_fault.py).  One case remains, a fault of the
+profiler's tracing, not of the graph: a graph of 8 concurrent branches
+with ~13k kernels each in WHILE bodies, captured after the process had
+traced, faults when its replays are traced — also a graph of in-place
+kernels on buffers made before the capture.  Profile such a step
+(MultiSeqSlam(num_seqs=8) on the card) in a process that captures it
+before its first trace.
 """
+
+import os
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+for _var, _value in (("TEARDOWN_CUPTI", "0"), ("DISABLE_CUPTI_LAZY_REINIT", "1")):
+    os.environ.setdefault(_var, _value)
 
 __version__ = "0.1.0"

@@ -12,13 +12,13 @@ Each LM step is the schur_step CUDA kernel on a CUDA window of at most
 schur.MAX_WINDOW poses with `pallas_schur` set, and schur_step_plain
 otherwise (a CPU window, `pallas_schur=False`, or a wider window, which
 warns as the reference does): `_use_schur_kernel` decides once per
-`optimize` call, before any launch.  The reference's while_loop
-(window_ba.py:434-470) keeps its accept / λ / `done` semantics with each
-step after the first under a utils/control.cond on `done`: eagerly one
-host read of `done` per step, as an early exit; inside the runner's
-captured frame step an IF node, so a converged loop runs no more steps and
-no host read decides anything.  The backend reset is a device select
-(`reset_if`).
+`optimize` call, before any launch.  Each LM phase is the reference's
+while_loop (window_ba.py:434-470) as a utils/control.while_loop with its
+carry (it, poses, lm_pw, λ, cost, done) and predicate it < iters & ~done:
+eagerly one host read of the predicate a step, an early exit; inside a
+captured frame step one WHILE node whatever the iteration count, so a
+converged loop runs no more steps and no host read decides anything.  The
+backend reset is a device select (`reset_if`).
 """
 
 from __future__ import annotations
@@ -273,33 +273,31 @@ def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta,
              use_kernel: bool = False):
     obs_uv, obs_ur, ur_valid = obs
     consts = _schur_consts(cam, obs, w_mask, fixed_pose)
-    cost = _total_cost(_residuals(cam, poses, lm_pw, obs_uv, obs_ur, ur_valid), w_mask,
-                       delta)
-    lam = torch.full((), 1e-4, dtype=cost.dtype, device=cost.device)
-    done = torch.zeros((), dtype=torch.bool, device=cost.device)
 
-    def step(poses, lm_pw, lam, cost, done):
+    def body(carry):
+        it, poses, lm_pw, lam, cost, _ = carry
         new_poses, new_lm = _schur_step(poses, lm_pw, consts, lam, delta, use_kernel)
         new_cost = _total_cost(_residuals(cam, new_poses, new_lm, obs_uv, obs_ur,
                                           ur_valid), w_mask, delta)
         better = new_cost < cost
         # Converged: an accepted step improved the cost by < 1e-5 relative.
         done = better & (cost - new_cost < 1e-5 * cost)
-        return (se3m.where(better, new_poses, poses), torch.where(better, new_lm, lm_pw),
+        return (it + 1, se3m.where(better, new_poses, poses),
+                torch.where(better, new_lm, lm_pw),
                 torch.where(better, torch.clamp(lam * 0.3, min=1e-7),
                             torch.clamp(lam * 5.0, max=1e3)),
                 torch.where(better, new_cost, cost), done)
 
-    def keep(*state):
-        return state
+    def pred(carry):
+        return (carry[0] < iters) & ~carry[5]
 
-    # The reference's while_loop: each step after the first runs under a
-    # cond on `done`, so a converged loop skips the rest.
-    state = (poses, lm_pw, lam, cost, done)
-    for k in range(iters):
-        state = (step(*state) if k == 0
-                 else control.cond(~state[4], step, keep, state, name="lm_step"))
-    poses, lm_pw, _, cost, _ = state
+    cost = _total_cost(_residuals(cam, poses, lm_pw, obs_uv, obs_ur, ur_valid), w_mask,
+                       delta)
+    dev = cost.device
+    carry = (torch.zeros((), dtype=torch.int32, device=dev), poses, lm_pw,
+             torch.full((), 1e-4, dtype=cost.dtype, device=dev), cost,
+             torch.zeros((), dtype=torch.bool, device=dev))
+    _, poses, lm_pw, _, cost, _ = control.while_loop(pred, body, carry, name="lm_loop")
     return poses, lm_pw, cost
 
 

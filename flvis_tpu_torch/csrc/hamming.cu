@@ -37,10 +37,12 @@
 // The (B, Na, Nb) matrix never leaves the SMs.
 //   - An invalid row enters as zero words with its accumulator started at
 //     512, so it reads 512 against every column.
-//   - Keys (d << 16) | index order (distance, then index), so a row's top 2
+//   - Keys (d << 21) | index order (distance, then index), so a row's top 2
 //     is a plain min/max network over its keys, exact and independent of
 //     the order the columns come in; a column's argmin is the min of
-//     (d << 16) | row.  Hence Na, Nb < 65,536.
+//     (d << 21) | row.  A distance takes 10 bits (0..512), so the keys stay
+//     below 2^31 and INT_MAX stays above every key; hence Na, Nb ≤
+//     2,097,150 (21 bits; the all-ones index marks a padding row).
 //   - One block of 16 warps (2 along the rows x 8 along the columns) owns
 //     64 rows of one pair and walks all of its B, staged in shared memory
 //     1024 columns at a time (all of B at 1000: one global round trip;
@@ -72,7 +74,9 @@ constexpr int WM = 2;                    // warps along the rows (32 rows each)
 constexpr int MX_WN = 4;                 // matrix mode: warps along the columns
 constexpr int MT_WN = 8;                 // match mode: warps along the columns
 constexpr int FAR = 512;                 // the distance of a pair with an invalid side
-constexpr int NO_ROW = 0xFFFF;           // the row index of a padding row
+constexpr int IDX_BITS = 21;             // match mode: the index field of a key
+constexpr int IDX_MASK = (1 << IDX_BITS) - 1;
+constexpr int NO_ROW = IDX_MASK;         // the row index of a padding row
 
 // d = c + popc(a & b) over 256 bits, and d += popc(a & b): A 16 x 256 (a0:
 // row g, bits 32·tig..; a1: row g + 8; a2, a3: the same rows, bits
@@ -237,8 +241,8 @@ __device__ __forceinline__ void match_tile(const int (&acc)[2][4][4], const Rows
                                            const Cols& B, int c0, int nb, int (&m1)[4],
                                            int (&m2)[4], int* __restrict__ CK, int lane) {
   const int g = lane >> 2, tig = lane & 3;
-  // Keys (d << 16) | column, one multiply-add each: d = FAR for an invalid
-  // column, INT_MAX past nb.  Column keys (d << 16) | row.
+  // Keys (d << 21) | column, one multiply-add each: d = FAR for an invalid
+  // column, INT_MAX past nb.  Column keys (d << 21) | row.
   int cmin[8];
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni)
@@ -246,8 +250,8 @@ __device__ __forceinline__ void match_tile(const int (&acc)[2][4][4], const Rows
     for (int q = 0; q < 2; ++q) {
       const int col = c0 + ni * 8 + tig * 2 + q;
       const bool ok = B.v[ni][q] != 0u;
-      const int cm = ok ? 65536 : 0;
-      const int cc = col >= nb ? INT_MAX : (ok ? col : (FAR << 16) | col);
+      const int cm = ok ? 1 << IDX_BITS : 0;
+      const int cc = col >= nb ? INT_MAX : (ok ? col : (FAR << IDX_BITS) | col);
       int cmk = INT_MAX;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -257,7 +261,7 @@ __device__ __forceinline__ void match_tile(const int (&acc)[2][4][4], const Rows
           const int key = acc[mi][ni][h * 2 + q] * cm + cc;
           m2[s] = min(m2[s], max(m1[s], key));
           m1[s] = min(m1[s], key);
-          cmk = min(cmk, (key & static_cast<int>(0xFFFF0000u)) | A.id[s]);
+          cmk = min(cmk, (key & ~IDX_MASK) | A.id[s]);
         }
       cmin[ni * 2 + q] = cmk;
     }
@@ -355,9 +359,9 @@ __global__ void __launch_bounds__(MT_NT)
 #pragma unroll
     for (int w = 1; w < MT_WN; ++w) merge2(k1, k2, smerge[w][tid][0], smerge[w][tid][1]);
     const size_t o = static_cast<size_t>(pair) * na + i0 + tid;
-    best_ab[o] = k1 & 0xFFFF;
-    d1[o] = k1 >> 16;
-    d2[o] = k2 >> 16;
+    best_ab[o] = k1 & IDX_MASK;
+    d1[o] = k1 >> IDX_BITS;
+    d2[o] = k2 >> IDX_BITS;
   }
 
   // The pair's last block to finish (an integer ticket a pair, 0 on entry
@@ -379,7 +383,7 @@ __global__ void __launch_bounds__(MT_NT)
   const bool local = nb <= CH * 8;
 #pragma unroll 2
   for (int j = tid; j < nb; j += MT_NT) {
-    const int r = __ldcg(CK + j) & 0xFFFF;
+    const int r = __ldcg(CK + j) & IDX_MASK;
     BA[j] = r;
     if (local) sba[j] = r;
     CK[j] = INT_MAX;
@@ -411,7 +415,7 @@ extern "C" int flvis_hamming_match(const uint32_t* desc_a, const uint32_t* desc_
                                    long long* best_ab, int* d1, int* d2, long long* best_ba,
                                    uint8_t* good, int* colkey, unsigned int* tickets, int B, int na,
                                    int nb, float ratio, int max_distance, cudaStream_t stream) {
-  if (B <= 0 || B > 65535 || na <= 0 || na > NO_ROW || nb < 2 || nb >= 65536)
+  if (B <= 0 || B > 65535 || na <= 0 || na >= NO_ROW || nb < 2 || nb >= NO_ROW)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((na + BM - 1) / BM, B);
   hamming_match_kernel<<<grid, MT_NT, 0, stream>>>(desc_a, desc_b, valid_a, valid_b, best_ab, d1,

@@ -52,9 +52,12 @@ _SIGNATURES = {
     "flvis_gather_windows": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _P, _L, _P, _I, _I, _I, _P],
     "flvis_gather_patches": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _L, _P, _I, _I, _P],
     "flvis_cond_open": [_P, _P, _P, _P],
-    "flvis_cond_body_begin": [_P, ctypes.c_ulonglong, _P],
+    "flvis_cond_body_begin": [_P, ctypes.c_ulonglong, _I, _P],
+    "flvis_while_open": [_P, _P, _P, _P],
+    "flvis_while_next": [_P, ctypes.c_ulonglong, _P, _P],
     "flvis_cond_body_end": [_P, _P],
     "flvis_graph_census": [_P, _P],
+    "flvis_stream_create": [_P],
 }
 
 

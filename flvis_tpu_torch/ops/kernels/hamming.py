@@ -33,7 +33,7 @@ from . import _build
 
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
 FAR = 512                 # the distance of a pair with an invalid side
-MAX_N = 65535             # match mode: indices are packed into 16 bits
+MAX_N = (1 << 21) - 2     # match mode: indices are packed into 21 bits (all ones: padding)
 
 
 def popcount32(x):
@@ -117,7 +117,7 @@ def mutual_ratio_match_kernel(desc_a, desc_b, valid_a, valid_b, ratio: float = 0
                               max_distance: int = 64):
     """Launch csrc/hamming.cu's match mode (one kernel) on contiguous CUDA
     tensors: int32 (B, Na, 8) and (B, Nb, 8) descriptors, bool (B, Na) and
-    (B, Nb) validity, Na ≤ 65,535 and 2 ≤ Nb ≤ 65,535; desc_b 16-byte
+    (B, Nb) validity, Na ≤ MAX_N and 2 ≤ Nb ≤ MAX_N (2,097,150); desc_b 16-byte
     aligned (the kernel stages it with 16-byte loads).  Outputs as the plain
     version's."""
     _require_desc("mutual_ratio_match: desc_a", desc_a, 3)

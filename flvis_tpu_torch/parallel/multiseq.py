@@ -1,23 +1,34 @@
-"""Multi-sequence replay: S independent SLAM runs through one chunk step
+"""Multi-sequence replay: S independent SLAM runs through one frame step
 (port of flvis_tpu/parallel/multiseq.py).
 
 The reference batches the S sequences with vmap into one device program
-per chunk (scan over frames of the vmapped frame step).  Here the S
-sequences keep their own states (lists of per-sequence records) and step
-frame-major: for each frame, each sequence, through the single-sequence
-frame functions of pipeline/runner (`_stereo_frame_core`,
-`_vio_frame_core`, `_ba_tail`), so every kernel of the single-sequence
-path runs on every sequence.  Batching the S sequences into one launch
-per op (stacked states, device selects for the host branches) is the next
-step on this path (ROADMAP).  The mesh and shard_map variants need more
-than one device and are not ported (ROADMAP Queue 1 item 10).
+per chunk (scan over frames of the vmapped frame step).  Here one step,
+`frame_step`, runs each sequence's frame — the single-sequence frame
+functions of pipeline/runner (`_stereo_frame_core`, `_vio_frame_core`,
+`_ba_tail`, `_fused_*_frame_step`), so every kernel of the
+single-sequence path runs on every sequence — as one
+utils/control.branches item each.  On a CUDA device
+parallel/multiseq_loop.MultiSeqSlam captures that step once into a CUDA
+graph and replays it a frame: the S sequences are S independent branches
+of the graph, each on its own stream with its own conditional-body
+streams and schur ticket, which the card runs side by side; the conds are
+IF nodes and window BA's LM loops WHILE nodes, so no host read decides
+anything inside a chunk.  Eagerly (the CPU, `system_chunk_batch[_vio]`,
+and MultiSeqSlam's comparison route) the same step runs frame by frame,
+each cond reading the host once.  Stacking the S states into one tensor
+a field, each op launched once for all S, is the next step (ROADMAP 10b).
+The mesh and shard_map variants need more than one device and are not
+ported (ROADMAP Queue 1 item 10).
 
 Window-BA cadence (`ba_every`, multiseq.py:164-258):
   - 1: per keyframe, exactly the single-sequence step (runner's
     _fused_frame_step / _fused_vio_frame_step);
-  - N > 1: keyframes enter each window every frame, and the window solve
-    runs for every sequence on the chunk's frames t with t % N == N − 1;
-    its Correction is applied on the next frame.
+  - N > 1: each frame the backend reset (a device select) and, on a
+    keyframe, the insert (a cond); then the window solve under a cond on
+    the frame-index predicate t % N == N − 1 (t the frame's index in its
+    chunk), which the host hands in as an input each frame — the
+    reference's scan-uniform real branch (multiseq.py:241-251); its
+    Correction is applied on the next frame.
 The reference turns its Pallas Schur step off for the batched windows
 (`_batched_bcfg`), because that kernel takes one window; the port's
 schur kernel (csrc/schur.cu) runs per window, so every solve here keeps
@@ -25,13 +36,13 @@ it.  The PnP rescue is off for batched runs, as in the reference
 (`_batched_fcfg`).
 
 Random draws: each sequence's tracker draws come from its own
-torch.Generator (`generators`), or from the draws a test hands in.  The
-steps run eagerly: each cond of the frame step reads the host once
-(utils/control.cond), as the host branches it replaced did.
+torch.Generator (`generators`), outside any graph, into a stacked
+(S, draws_size) input — or from the draws a test hands in.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -39,7 +50,9 @@ import torch
 from ..backend import window_ba
 from ..config import BackendConfig, FrontendConfig, VioConfig
 from ..frontend import tracker
+from ..ops.kernels import schur
 from ..pipeline import runner as runner_m
+from ..utils import control
 from ..utils.tree import tree_map
 from ..vio import vimotion
 
@@ -101,53 +114,124 @@ def track_frames_scan_batch(cfg: FrontendConfig, cams, states, imgs0, imgs1, gen
     return states, _stack(outs)
 
 
-def _chunk(bcfg, cams, bas, corrs, T: int, S: int, ba_every: int, frame):
-    """The chunk loop shared by the stereo and VIO variants; frame(s, t,
-    corr) runs sequence s's frame core on frame t and returns (fe, out).
-    Returns (bas, corrs, outs [S][T], costs (S, T))."""
-    bas, corrs = list(bas), list(corrs)
+def _seq_frame(fcfg, bcfg, vcfg, cam, T_i_c, null, ba_every: int, carry, x, draws, solve):
+    """One sequence's frame of the S-sequence step: carry (fe, ba, corr) or,
+    with vcfg, (fe, ba, vio, corr); x its frame inputs.  Returns (carry',
+    its packed (14,) row: runner._pack_outputs with the BA cost and the
+    correction's valid flag)."""
+    if ba_every == 1:
+        if vcfg is None:
+            carry, ys = runner_m._fused_frame_step(fcfg, bcfg, cam, null, carry, x, draws)
+        else:
+            carry, ys = runner_m._fused_vio_frame_step(fcfg, bcfg, vcfg, cam, T_i_c, null,
+                                                       carry, x, draws)
+        return carry, runner_m._frame_row(ys)[0]
+    if vcfg is None:
+        fe, ba, corr = carry
+        fe, out = runner_m._stereo_frame_core(fcfg, cam, fe, corr, *x, draws)
+    else:
+        fe, ba, vio, corr = carry
+        fe, vio, out = runner_m._vio_frame_core(fcfg, vcfg, cam, T_i_c, fe, vio, corr, x, draws)
+    ba = window_ba.reset_if(bcfg, ba, out.reset_backend)
+    pkt = tracker.make_keyframe_packet(fe, out)
+    ba = control.cond(out.is_keyframe, lambda b: window_ba.add_keyframe(bcfg, b, pkt),
+                      lambda b: b, (ba,), name="keyframe_insert")
+
+    def do_solve(b):
+        res = window_ba.optimize(bcfg, cam, b)
+        return res.state, res.correction, res.cost
+
+    def no_solve(b):
+        return b, null, torch.zeros((), dtype=torch.float32, device=out.status.device)
+
+    ba, corr, cost = control.cond(solve, do_solve, no_solve, (ba,), name="window_solve")
+    carry = (fe, ba, corr) if vcfg is None else (fe, ba, vio, corr)
+    return carry, runner_m._frame_row((out, pkt, corr, cost))[0]
+
+
+def frame_step(fcfg: FrontendConfig, bcfg: BackendConfig, cams, ba_every: int = 1, *,
+               vcfg: VioConfig | None = None, T_i_cs=None, tickets=None):
+    """The S-sequence frame step fn(carries, inputs) → (carries', rows):
+    carries a tuple of S per-sequence carries ((fe, ba, corr), or (fe, ba,
+    vio, corr) with vcfg); inputs = (imgs0 (S, H, W), imgs1[, ts (S,), acc
+    (S, P, 3), gyro, imu_t (S, P), imu_valid], solve (0-d bool: the window
+    solve's frame-index predicate, unused at ba_every 1), u (S,
+    draws_size)); rows (S, 14) (runner._pack_outputs with the BA cost —
+    0 on frames without a solve — and the correction's valid flag).  Each
+    sequence is one control.branches item, with tickets[s] (a zeroed int32
+    (1,) CUDA tensor) as its schur ticket when given.  The one function
+    both devices run: captured on a CUDA device, eagerly on the CPU."""
+    fcfg = _batched_fcfg(fcfg)
     null = window_ba.null_correction(bcfg, device=cams[0].fx.device)
-    outs = [[None] * T for _ in range(S)]
-    costs = [[None] * T for _ in range(S)]
-    for t in range(T):
-        for s in range(S):
-            fe, out = frame(s, t, corrs[s])
-            corrs[s] = null
-            outs[s][t] = out
-            if ba_every == 1:
-                bas[s], _, corrs[s], costs[s][t] = runner_m._ba_tail(bcfg, cams[s], null,
-                                                                     bas[s], fe, out)
-                continue
-            costs[s][t] = torch.zeros((), device=cams[s].fx.device)
-            if bool(out.reset_backend):
-                bas[s] = window_ba.reset(bcfg, bas[s])
-            if bool(out.is_keyframe):
-                bas[s] = window_ba.add_keyframe(bcfg, bas[s],
-                                                tracker.make_keyframe_packet(fe, out))
-        if ba_every > 1 and t % ba_every == ba_every - 1:
-            for s in range(S):
-                res = window_ba.optimize(bcfg, cams[s], bas[s])
-                bas[s], corrs[s], costs[s][t] = res.state, res.correction, res.cost
-    return bas, corrs, outs, torch.stack([torch.stack(c) for c in costs])
+    T_i_cs = T_i_cs if T_i_cs is not None else [None] * len(cams)
+
+    def fn(carries, inputs):
+        *frame, solve, u = inputs
+
+        def one(s):
+            own = (schur.use_ticket(tickets[s]) if tickets is not None
+                   else contextlib.nullcontext())
+            with own:
+                return _seq_frame(fcfg, bcfg, vcfg, cams[s], T_i_cs[s], null, ba_every,
+                                  carries[s], tuple(a[s] for a in frame),
+                                  tracker.draws_of(fcfg, u[s]), solve)
+
+        outs = control.branches(one, range(len(carries)), name="sequences")
+        return tuple(c for c, _ in outs), torch.stack([r for _, r in outs])
+
+    return fn
+
+
+def solve_schedule(T: int, ba_every: int, device):
+    """(T,) bool: the frames of a chunk whose window solve runs (t % N ==
+    N − 1, t the index in the chunk, as the reference's scan index)."""
+    return torch.arange(T, device=device) % ba_every == ba_every - 1
+
+
+def make_draws(fcfg: FrontendConfig, generators, device, out=None):
+    """One frame's draws of S sequences, (S, draws_size): row s from
+    generators[s] (into `out` when given)."""
+    if out is None:
+        out = torch.empty((len(generators), tracker.draws_size(fcfg)), dtype=torch.float32,
+                          device=device)
+    for s, g in enumerate(generators):
+        tracker.make_draws(fcfg, g, device, out=out[s])
+    return out
+
+
+def run_chunk_eager(step, carries, xs, draw):
+    """step over a chunk, eagerly: xs frame-major (T, ...) inputs (the
+    step's inputs less the draws), draw() a frame's (S, draws_size) draws.
+    Returns (carries, rows (T, S, 14))."""
+    rows = []
+    for i in range(xs[0].shape[0]):
+        carries, r = step(carries, tuple(x[i] for x in xs) + (draw(),))
+        rows.append(r)
+    return carries, torch.stack(rows)
+
+
+def _run(fcfg, bcfg, cams, carries, seq_xs, generators, ba_every, vcfg=None, T_i_cs=None):
+    """system_chunk_batch[_vio]'s eager chunk: seq_xs (S, T, ...) inputs."""
+    dev = seq_xs[0].device
+    step = frame_step(fcfg, bcfg, cams, ba_every, vcfg=vcfg, T_i_cs=T_i_cs)
+    T = seq_xs[0].shape[1]
+    xs = tuple(x.transpose(0, 1) for x in seq_xs) + (solve_schedule(T, ba_every, dev),)
+    carries, rows = run_chunk_eager(step, tuple(carries), xs,
+                                    lambda: make_draws(fcfg, generators, dev))
+    r = rows.transpose(0, 1)            # (S, T, 14)
+    return [list(c) for c in zip(*carries)], (runner_m._unpack_outputs(r), r[..., 12])
 
 
 def system_chunk_batch(fcfg: FrontendConfig, bcfg: BackendConfig, cams, fe_states,
                        ba_states, corrs, imgs0, imgs1, generators, ba_every: int = 1):
     """Tracking + window BA + correction feedback over a chunk for S
-    sequences: imgs (S, T, H, W).  Returns (fe_states, ba_states, corrs,
-    FrameOutput (S, T), BA costs (S, T); 0 on frames without a solve)."""
-    fcfg = _batched_fcfg(fcfg)
-    fes = list(fe_states)
-    S, T = imgs0.shape[:2]
-
-    def frame(s, t, corr):
-        draws = tracker.make_draws(fcfg, generators[s], imgs0.device)
-        fes[s], out = runner_m._stereo_frame_core(fcfg, cams[s], fes[s], corr, imgs0[s, t],
-                                                  imgs1[s, t], draws)
-        return fes[s], out
-
-    bas, corrs, outs, costs = _chunk(bcfg, cams, ba_states, corrs, T, S, ba_every, frame)
-    return fes, bas, corrs, _stack(outs), costs
+    sequences, through frame_step eagerly: imgs (S, T, H, W).  Returns
+    (fe_states, ba_states, corrs, FrameOutput (S, T), BA costs (S, T); 0
+    on frames without a solve)."""
+    (fes, bas, corrs), (outs, costs) = _run(
+        fcfg, bcfg, cams, zip(fe_states, ba_states, corrs), (imgs0, imgs1), generators,
+        ba_every)
+    return fes, bas, corrs, outs, costs
 
 
 def system_chunk_batch_vio(fcfg: FrontendConfig, bcfg: BackendConfig, vcfg: VioConfig, cams,
@@ -157,17 +241,7 @@ def system_chunk_batch_vio(fcfg: FrontendConfig, bcfg: BackendConfig, vcfg: VioC
     (S, T, P, 3); imu_t/imu_valid (S, T, P) (runner.pack_imu_frames per
     sequence), all tensors on the states' device.  Returns (fe_states,
     ba_states, vio_states, corrs, FrameOutput (S, T), BA costs (S, T))."""
-    fcfg = _batched_fcfg(fcfg)
-    fes, vios = list(fe_states), list(vio_states)
-    S, T = imgs0.shape[:2]
-
-    def frame(s, t, corr):
-        xs = (imgs0[s, t], imgs1[s, t], ts[s, t], acc[s, t], gyro[s, t], imu_t[s, t],
-              imu_valid[s, t])
-        draws = tracker.make_draws(fcfg, generators[s], imgs0.device)
-        fes[s], vios[s], out = runner_m._vio_frame_core(fcfg, vcfg, cams[s], T_i_cs[s], fes[s],
-                                                        vios[s], corr, xs, draws)
-        return fes[s], out
-
-    bas, corrs, outs, costs = _chunk(bcfg, cams, ba_states, corrs, T, S, ba_every, frame)
-    return fes, bas, vios, corrs, _stack(outs), costs
+    (fes, bas, vios, corrs), (outs, costs) = _run(
+        fcfg, bcfg, cams, zip(fe_states, ba_states, vio_states, corrs),
+        (imgs0, imgs1, ts, acc, gyro, imu_t, imu_valid), generators, ba_every, vcfg, T_i_cs)
+    return fes, bas, vios, corrs, outs, costs

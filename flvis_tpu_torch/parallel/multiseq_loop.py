@@ -3,10 +3,20 @@ flvis_tpu/parallel/multiseq_loop.py).
 
 The reference's default launch runs tracking, local-map BA and loop
 closing for every run, so "all runs at once" carries a loop node per
-sequence.  The chunk step (tracking + window BA + feedback [+ VIO]) runs
-for the S sequences through parallel/multiseq; the loop stage runs per
-sequence over its own LoopCloser with the chunked replay's deferred
-contract (pipeline/runner.LoopStage):
+sequence.  The frame step (tracking + window BA + feedback [+ VIO]) runs
+for the S sequences through parallel/multiseq.frame_step: on a CUDA
+device captured once per kind (stereo, VIO) into one CUDA graph at the
+first chunk — S independent branches, one a sequence — and replayed a
+frame, with no host read inside a chunk (the host copies the frame's
+stacked inputs in, draws each sequence's uniforms from its own generator
+into the graph's (S, draws_size) buffer, replays, and copies the frame's
+(S, 14) rows out); on the CPU eagerly, frame by frame.  A capture failure
+raises, naming the operation; nothing falls back to the eager loop.  The
+eager route on the card (`_run_chunk_eager`) is kept for comparisons.
+
+The loop stage runs per sequence over its own LoopCloser, eagerly at the
+chunk ends, with the chunked replay's deferred contract
+(pipeline/runner.LoopStage):
 
   chunk N   : ingest chunk N's keyframes (add_keyframes_batch); gate them
   chunk N+1 : the chunk's one host fetch carries the gate rows → host
@@ -16,9 +26,7 @@ contract (pipeline/runner.LoopStage):
 
 With pipelined=True a chunk's end runs after the next chunk has been
 stepped: process_chunk* returns the previous chunk's packed outputs (None
-on the first call) and flush() drains.  The frame step reads the device
-at its host branches, so this keeps the reference's return lag and
-dataflow without overlapping anything.
+on the first call) and flush() drains, the reference's return lag.
 """
 
 from __future__ import annotations
@@ -29,12 +37,12 @@ import numpy as np
 import torch
 
 from ..config import SystemConfig
+from ..frontend import tracker
 from ..geometry import se3 as se3m, so3
 from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..loop.loop_closing import LoopCloser
 from ..pipeline import runner as runner_m
-from ..utils.tree import tree_map
 from . import multiseq
 
 
@@ -88,56 +96,121 @@ class MultiSeqSlam:
         self.trajectories: list = [[] for _ in range(num_seqs)]
         self.pipelined = pipelined
         self._inflight = None
+        self._captured = {}             # "stereo" / "vio" -> runner._Captured (CUDA devices)
+        # Each sequence's schur last-block ticket: its branch's own.
+        self._tickets = (torch.zeros((num_seqs, 1), dtype=torch.int32, device=self.device)
+                         if self.device.type == "cuda" else None)
 
     def _to_device(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
 
+    # ---------------------------------------------------------------- steps
+    def _carries(self, vio: bool):
+        return tuple(zip(self.fe, self.ba, self.vio, self.corr) if vio
+                     else zip(self.fe, self.ba, self.corr))
+
+    def _set_carries(self, vio: bool, carries):
+        cols = [list(c) for c in zip(*carries)]
+        if vio:
+            self.fe, self.ba, self.vio, self.corr = cols
+        else:
+            self.fe, self.ba, self.corr = cols
+
+    def _step(self, kind: str, tickets=None):
+        return multiseq.frame_step(self.cfg.frontend, self.cfg.backend, self.cams,
+                                   self.ba_every, vcfg=self.cfg.vio if kind == "vio" else None,
+                                   T_i_cs=self.T_i_cs, tickets=tickets)
+
+    def _frame_major(self, seq_xs):
+        """(S, T, ...) inputs → frame-major (T, S, ...) views, with the
+        chunk's window-solve schedule (T,) last."""
+        T = seq_xs[0].shape[1]
+        return (tuple(x.transpose(0, 1) for x in seq_xs)
+                + (multiseq.solve_schedule(T, self.ba_every, self.device),))
+
+    def _draw(self, out=None):
+        return multiseq.make_draws(self.cfg.frontend, self.generators, self.device, out=out)
+
+    def _run_chunk(self, kind: str, seq_xs):
+        """Step the chunk ((S, T, ...) inputs on the device) from the
+        sequences' states: on a CUDA device one replay of the captured step
+        a frame (captured at the first chunk), else the eager step.
+        Updates the states; returns the packed (S, T, 14) rows and the
+        captured step, or None."""
+        if self.device.type != "cuda":
+            return self._run_chunk_eager(kind, seq_xs)
+        cap = self._captured_step(kind, seq_xs)
+        carries, rows = cap.run(self._carries(kind == "vio"), self._frame_major(seq_xs),
+                                self._draw)
+        self._set_carries(kind == "vio", carries)
+        return rows.transpose(0, 1), cap
+
+    def _captured_step(self, kind: str, seq_xs):
+        """The captured `kind` step, captured now (from the sequences'
+        states, on a frame of seq_xs's shapes) unless it was before."""
+        cap = self._captured.get(kind)
+        if cap is None:
+            xs = tuple(x[0] for x in self._frame_major(seq_xs))
+            u = torch.zeros((self.S, tracker.draws_size(self.cfg.frontend)),
+                            dtype=torch.float32, device=self.device)
+            cap = self._captured[kind] = runner_m._Captured(
+                self._step(kind, self._tickets), self._carries(kind == "vio"), xs, u,
+                f"the {self.S}-sequence {kind} frame step", branches=self.S)
+        return cap
+
+    def _run_chunk_eager(self, kind: str, seq_xs):
+        """_run_chunk through the eager loop over the same step, on the
+        same draws."""
+        carries, rows = multiseq.run_chunk_eager(self._step(kind), self._carries(kind == "vio"),
+                                                 self._frame_major(seq_xs), self._draw)
+        self._set_carries(kind == "vio", carries)
+        return rows.transpose(0, 1), None
+
     # ---------------------------------------------------------------- chunks
     def process_chunk(self, imgs0, imgs1, ts=None):
-        """One (S, T, H, W) chunk through the chunk step, then the
+        """One (S, T, H, W) chunk through the frame step, then the
         per-sequence loop stage.  Returns the (S, T, 12) packed host outputs
         (columns as runner._pack_outputs)."""
         imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
-        self.fe, self.ba, self.corr, outs, _ = multiseq.system_chunk_batch(
-            self.cfg.frontend, self.cfg.backend, self.cams, self.fe, self.ba, self.corr,
-            imgs0, imgs1, self.generators, ba_every=self.ba_every)
-        return self._after_dispatch(outs, imgs0, imgs1, ts)
+        rows, cap = self._run_chunk("stereo", (imgs0, imgs1))
+        return self._after_dispatch(rows, cap, imgs0, imgs1, ts)
 
     def process_chunk_vio(self, imgs0, imgs1, ts, acc, gyro, imu_t, imu_valid):
         """VIO variant: (S, T) image times plus (S, T, P, ·) packed per-frame
         IMU batches (runner.pack_imu_frames per sequence)."""
         imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
         f = torch.float32
-        (self.fe, self.ba, self.vio, self.corr, outs, _) = multiseq.system_chunk_batch_vio(
-            self.cfg.frontend, self.cfg.backend, self.cfg.vio, self.cams, self.T_i_cs,
-            self.fe, self.ba, self.vio, self.corr, imgs0, imgs1, self._to_device(ts, f),
-            self._to_device(acc, f), self._to_device(gyro, f), self._to_device(imu_t, f),
-            self._to_device(imu_valid, torch.bool), self.generators, ba_every=self.ba_every)
-        return self._after_dispatch(outs, imgs0, imgs1, ts)
+        rows, cap = self._run_chunk("vio", (
+            imgs0, imgs1, self._to_device(ts, f), self._to_device(acc, f),
+            self._to_device(gyro, f), self._to_device(imu_t, f),
+            self._to_device(imu_valid, torch.bool)))
+        return self._after_dispatch(rows, cap, imgs0, imgs1, ts)
 
-    def _after_dispatch(self, outs, imgs0, imgs1, ts):
+    def _after_dispatch(self, *chunk):
         """Synchronous mode finishes the chunk now; pipelined mode keeps it
         in flight and finishes the previous one (None on the first call)."""
-        packed = torch.stack([runner_m._pack_outputs(
-            tree_map(lambda a: a[s], outs)) for s in range(self.S)])
         if not self.pipelined:
-            return self._finish(packed, imgs0, imgs1, ts)
-        prev, self._inflight = self._inflight, (packed, imgs0, imgs1, ts)
+            return self._finish(*chunk)
+        prev, self._inflight = self._inflight, chunk
         return self._finish(*prev) if prev is not None else None
 
     # ----------------------------------------------------------- loop stage
-    def _finish(self, packed_dev, imgs0, imgs1, ts):
-        """A chunk's end: ONE host fetch of the packed outputs and every
-        sequence's pending gate rows and verification statistics; then per
-        sequence the loop stage's resolve, the trajectory log, and the
-        chunk's keyframes into its loop node."""
+    def _finish(self, rows_dev, cap, imgs0, imgs1, ts):
+        """A chunk's end: ONE host fetch of the packed rows, the captured
+        step's taken counts and every sequence's pending gate rows and
+        verification statistics; then per sequence the loop stage's
+        resolve, the trajectory log, and the chunk's keyframes into its
+        loop node."""
         S, T = imgs0.shape[0], imgs0.shape[1]
         pending = [st.pending() if st is not None else (None, None) for st in self.stages]
-        fetched = runner_m.fetch(packed_dev, *[a for p in pending for a in p])
+        fetched = runner_m.fetch(rows_dev[..., :12], cap.step.taken if cap is not None else None,
+                                 *[a for p in pending for a in p])
         packed = fetched[0]
+        if cap is not None:
+            cap.step.settle(fetched[1])
         for s, st in enumerate(self.stages):
             if st is not None:
-                st.resolve(fetched[1 + 2 * s], fetched[2 + 2 * s])
+                st.resolve(fetched[2 + 2 * s], fetched[3 + 2 * s])
         first = self._frames
         self._frames += T
         ts_np = None if ts is None else np.asarray(ts, np.float64)

@@ -13,8 +13,9 @@ the feedforward prior, the roll/pitch blend and the vision → IMU feedback
 (a cond on TRACKING).  The reference runs a chunk of such steps as one
 lax.scan device program; here, on a CUDA device, process_frames and
 process_frames_vio capture the step once per system and path into one
-CUDA graph (utils/control.CapturedStep: the conds become IF nodes taken on
-the device) and replay it a frame, with no host read before the chunk's
+CUDA graph (utils/control.CapturedStep: the conds become IF nodes and
+window BA's LM loops WHILE nodes, taken on the device) and replay it a
+frame, with no host read before the chunk's
 end: the host copies the frame's images (and IMU packet) into the graph's
 input buffers, draws the frame's uniforms into its draws buffer from the
 system's generator — outside the graph, so the captured and the eager step
@@ -96,12 +97,17 @@ def _pack_outputs(outs, costs=None, corr_valids=None):
     return torch.cat(cols, dim=1)
 
 
-def _unpack_outputs(packed: np.ndarray) -> tracker.FrameOutput:
-    """(T, ≥ 12) packed host array → FrameOutput of numpy arrays."""
+def _unpack_outputs(packed) -> tracker.FrameOutput:
+    """(..., ≥ 12) packed rows, a host array or a tensor → FrameOutput of
+    the same kind, with the leading axes of `packed`."""
+    if isinstance(packed, torch.Tensor):
+        i32 = lambda a: a.to(torch.int32)
+    else:
+        i32 = lambda a: a.astype(np.int32)
     return tracker.FrameOutput(
-        T_c_w=SE3(packed[:, 5:9], packed[:, 9:12]), is_keyframe=packed[:, 0] > 0.5,
-        reset_backend=packed[:, 1] > 0.5, num_inliers=packed[:, 3].astype(np.int32),
-        mean_reproj_err=packed[:, 4], status=packed[:, 2].astype(np.int32))
+        T_c_w=SE3(packed[..., 5:9], packed[..., 9:12]), is_keyframe=packed[..., 0] > 0.5,
+        reset_backend=packed[..., 1] > 0.5, num_inliers=i32(packed[..., 3]),
+        mean_reproj_err=packed[..., 4], status=i32(packed[..., 2]))
 
 
 def fetch(*tensors):
@@ -274,46 +280,36 @@ def _upload(a, device):
 
 
 class _Captured:
-    """One SlamSystem's captured frame step (stereo or VIO): the
-    CapturedStep over static carry/inputs/draws buffers, replayed per
-    frame.  Capture happens at the first chunk; a failure raises."""
+    """A captured frame step fn(carry, inputs + (u,)) → (carry', ys) over
+    static carry, input and draws (`u`) buffers, replayed a frame: one
+    SlamSystem's (stereo or VIO), or MultiSeqSlam's over S sequences as S
+    branches (`branches`).  The capture happens here, at the first chunk;
+    a failure raises.  fn brings the schur kernel's last-block ticket(s)
+    (schur.use_ticket), one a branch."""
 
-    def __init__(self, step, carry, xs, fcfg, ticket, name):
-        self.fcfg = fcfg
-        dev = xs[0].device
-        self.u = torch.zeros(tracker.draws_size(fcfg), dtype=torch.float32, device=dev)
-        self.xs = tuple(x.clone() for x in xs)
+    def __init__(self, fn, carry, xs, u, name, branches: int = 0):
+        self.xs, self.u = tuple(x.clone() for x in xs), u
+        self.step = control.CapturedStep(fn, tree_map(torch.clone, carry), self.xs + (self.u,),
+                                         name=name, branches=branches)
 
-        def fn(c, inputs):
-            *frame, u = inputs
-            c, ys = step(c, tuple(frame), tracker.draws_of(fcfg, u))
-            return c, _frame_row(ys)
-
-        with schur.use_ticket(ticket):
-            self.step = control.CapturedStep(fn, tree_map(torch.clone, carry),
-                                             self.xs + (self.u,), name=name)
-        self.row, self.pkt = self.step.ys
-
-    def run(self, carry, xs, generator):
-        """The chunk: carry (a state tree, copied in), xs (T, ...) tensors.
-        Returns (carry (fresh tensors), packed (T, 14), stacked packets)."""
+    def run(self, carry, xs, draw):
+        """The chunk: carry (a state tree, copied in), xs (T, ...) tensors,
+        draw(u) writing a frame's draws into u.  Returns (carry (fresh
+        tensors), the step's ys stacked over T)."""
         for dst, src in zip(tree_leaves(self.step.carry), tree_leaves(carry)):
             dst.copy_(src)
         T = xs[0].shape[0]
-        packed = torch.empty((T,) + tuple(self.row.shape), dtype=self.row.dtype,
-                             device=self.row.device)
-        pkts = tree_map(lambda a: torch.empty((T,) + tuple(a.shape), dtype=a.dtype,
-                                              device=a.device), self.pkt)
-        pkt_out, pkt_in = tree_leaves(pkts), tree_leaves(self.pkt)
+        outs = tree_map(lambda a: torch.empty((T,) + tuple(a.shape), dtype=a.dtype,
+                                              device=a.device), self.step.ys)
+        out_leaves, ys = tree_leaves(outs), tree_leaves(self.step.ys)
         for i in range(T):
             for dst, x in zip(self.xs, xs):
                 dst.copy_(x[i])
-            tracker.make_draws(self.fcfg, generator, self.u.device, out=self.u)
+            draw(self.u)
             self.step.replay()
-            packed[i].copy_(self.row)
-            for dst, src in zip(pkt_out, pkt_in):
+            for dst, src in zip(out_leaves, ys):
                 dst[i].copy_(src)
-        return tree_map(torch.clone, self.step.carry), packed, pkts
+        return tree_map(torch.clone, self.step.carry), outs
 
 
 def pack_imu_frames(imu_accs, imu_gyros, imu_ts, pad: int = 16):
@@ -479,7 +475,10 @@ class SlamSystem:
             return self._run_chunk_eager(kind, xs)
         vio = kind == "vio"
         cap = self._captured_step(kind, xs)
-        carry, packed, pkts = cap.run(self._carry(vio), xs, self.generator)
+        fcfg = self.cfg.frontend
+        carry, (packed, pkts) = cap.run(
+            self._carry(vio), xs,
+            lambda u: tracker.make_draws(fcfg, self.generator, self.device, out=u))
         self._set_carry(vio, carry)
         return packed, pkts, cap
 
@@ -489,10 +488,18 @@ class SlamSystem:
         cap = self._captured.get(kind)
         if cap is None:
             vio = kind == "vio"
+            step = self._vio_step if vio else self._stereo_step
+            fcfg = self.cfg.frontend
+
+            def fn(c, inputs):
+                *frame, u = inputs
+                with schur.use_ticket(self._ticket):
+                    c, ys = step(c, tuple(frame), tracker.draws_of(fcfg, u))
+                return c, _frame_row(ys)
+
+            u = torch.zeros(tracker.draws_size(fcfg), dtype=torch.float32, device=self.device)
             cap = self._captured[kind] = _Captured(
-                self._vio_step if vio else self._stereo_step, self._carry(vio),
-                tuple(x[0] for x in xs), self.cfg.frontend, self._ticket,
-                f"the {kind} frame step")
+                fn, self._carry(vio), tuple(x[0] for x in xs), u, f"the {kind} frame step")
         return cap
 
     def _run_chunk_eager(self, kind: str, xs):

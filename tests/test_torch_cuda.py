@@ -503,6 +503,30 @@ def test_hamming_match_kernel_exact(dev, case):
     assert bool(((d1 == d2) & (d1 < 512)).any()) or nb == 2
 
 
+@pytest.mark.parametrize("na, nb", [(300, 70000), (70000, 300)])
+def test_hamming_match_past_16_bit_indices(dev, na, nb):
+    """Past 65,535 columns or rows (the 16-bit index field the keys had):
+    the match mode against its plain version bit for bit, with a mutual
+    match planted at a column index (or a row index) above 65,535."""
+    from flvis_tpu_torch.ops.kernels import hamming
+
+    a, b, va, vb = _match_inputs(np.random.default_rng(na + nb), 1, na, nb)
+    i, j = (5, nb - 1000) if nb > na else (na - 1000, 5)
+    a[0, i] = b[0, j]
+    va[0, i] = vb[0, j] = True
+    args = [x.to(dev) for x in (a, b, va, vb)]
+    got = hamming.mutual_ratio_match(*args, ratio=0.75, max_distance=64)
+    ref = hamming.mutual_ratio_match_plain(*args, ratio=0.75, max_distance=64)
+    for name, g, r in zip(("best_ab", "good", "d1", "d2", "best_ba"), got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert torch.equal(g, r), name
+    best_ab, good = ref[0], ref[1]
+    if nb > na:
+        assert bool((good & (best_ab > 65535)).any())
+    else:
+        assert bool(good[:, 65536:].any()) and int(ref[4][0, j]) == i
+
+
 def test_new_kernel_wrappers_refuse_bad_input(dev):
     from flvis_tpu_torch.ops.kernels import fastblur, hamming, imu_chain, sweep
 
@@ -538,10 +562,11 @@ def test_new_kernel_wrappers_refuse_bad_input(dev):
     assert d3_4.is_contiguous() and d3_4.data_ptr() % 16
     with pytest.raises(ValueError, match="aligned"):
         hamming.mutual_ratio_match(d3, d3_4, v2, v2)
-    big = torch.zeros((1, 65536, 8), dtype=torch.int32, device=dev)
+    big = torch.zeros((1, hamming.MAX_N + 1, 8), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="Na"):
-        hamming.mutual_ratio_match(big, d3[:1], torch.ones((1, 65536), dtype=torch.bool,
-                                                           device=dev), v2[:1])
+        hamming.mutual_ratio_match(big, d3[:1], torch.ones((1, hamming.MAX_N + 1),
+                                                           dtype=torch.bool, device=dev),
+                                   v2[:1])
     with pytest.raises(ValueError, match="expected q0"):
         imu_chain.attitude_chain(torch.zeros(4, device=dev), torch.zeros((3, 4), device=dev),
                                  torch.zeros((2, 3), device=dev), torch.zeros(3, device=dev))
@@ -1288,3 +1313,258 @@ def test_capture_failure_raises(dev, monkeypatch):
                                            "aten._local_scalar_dense"):
         slam.process_frames(imgs0, imgs1)
     assert slam._captured == {} and slam._frames_processed == 0
+
+
+def test_captured_long_lm_loops_match_eager(dev):
+    """iters1 = 120, iters2 = 10 — more LM steps than a capture held when
+    each step was a cond of its own — capture (each LM phase one WHILE
+    node) and replay with the eager composition's bits; the loops' taken
+    counts hold their iterations."""
+    import dataclasses
+
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _entry_system(dev)
+    cfg = cfg.replace(backend=dataclasses.replace(cfg.backend, iters1=120, iters2=10))
+    frames = _entry_frames(blank=())
+    slam = SlamSystem(cfg, cam, device=dev, seed=0)
+    got = _chunks(slam, "stereo", frames, 6)
+    want, costs = _eager_chunks(SlamSystem(cfg, cam, device=dev, seed=0), "stereo", frames, 6)
+    _assert_same_outputs(got, want)
+    assert slam.ba_costs == costs and len(costs) >= 2
+    st = slam._captured["stereo"].step
+    loops = [x for x in st.sites if x["kind"] == "while"]
+    assert [x["name"] for x in loops] == ["lm_loop", "lm_loop"] and len(st.sites) <= 8
+    iterations, entries = st.taken_by_name()["lm_loop"]
+    assert entries == 2 * len(costs) and iterations >= entries
+    assert st.node_stats()[2] == iterations / st.replays
+
+
+def _multiseq_inputs(frames, S, roll=7):
+    """The entry frames as S sequences, the last rolled horizontally by
+    `roll` px (so that it differs), with their IMU packets."""
+    from flvis_tpu_torch.pipeline.runner import pack_imu_frames
+
+    imgs0, imgs1, ts, imu = frames
+    shift = [0] * (S - 1) + [roll]
+    i0 = np.stack([np.roll(imgs0, k, axis=2) for k in shift])
+    i1 = np.stack([np.roll(imgs1, k, axis=2) for k in shift])
+    packed = pack_imu_frames(*imu, 16)
+    return i0, i1, np.broadcast_to(ts.astype(np.float32), (S,) + ts.shape), [
+        np.broadcast_to(a, (S,) + a.shape) for a in packed]
+
+
+@pytest.mark.parametrize("ba_every", [1, 2])
+@pytest.mark.parametrize("kind", ["stereo", "vio"])
+def test_multiseq_captured_matches_eager(dev, kind, ba_every):
+    """MultiSeqSlam(num_seqs=3) on the card — one captured graph a frame,
+    the 3 sequences its branches — against its eager route over the same
+    frames and draws, in chunks of 6 through the blank frames' FAIL and
+    re-init: every packed output bit for bit, each sequence's generator as
+    far on, sequences 0 and 1 (the same frames) equal, the rolled sequence
+    2 not; no fallback to eager."""
+    from flvis_tpu_torch.parallel.multiseq_loop import MultiSeqSlam
+
+    S = 3
+    cfg, cam = _entry_system(dev)
+    i0, i1, ts, imu = _multiseq_inputs(_entry_frames(), S)
+    runs = []
+    for eager in (False, True):
+        ms = MultiSeqSlam(cfg, cam, num_seqs=S, use_imu=kind == "vio", use_loop=False,
+                          ba_every=ba_every, device=dev)
+        if eager:
+            ms._run_chunk = ms._run_chunk_eager
+        outs = []
+        for c in range(0, i0.shape[1], 6):
+            sl = slice(c, c + 6)
+            if kind == "vio":
+                outs.append(ms.process_chunk_vio(i0[:, sl], i1[:, sl], ts[:, sl],
+                                                 *(a[:, sl] for a in imu)))
+            else:
+                outs.append(ms.process_chunk(i0[:, sl], i1[:, sl], ts[:, sl]))
+        runs.append((ms, np.concatenate(outs, axis=1)))
+    (cap_ms, got), (eag_ms, want) = runs
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(cap_ms.generators, eag_ms.generators):     # the same draws consumed
+        assert torch.equal(a.get_state(), b.get_state())
+    assert set(cap_ms._captured) == {kind} and eag_ms._captured == {}
+    st = cap_ms._captured[kind].step
+    assert st.replays == i0.shape[1] and len({x["branch"] for x in st.sites}) == S
+    np.testing.assert_array_equal(got[0], got[1])
+    assert not np.array_equal(got[0, :, 9:12], got[2, :, 9:12])
+    assert got[0, 6, 2] == 2 and (got[:, 7:, 2] == 1).all()          # FAIL, then re-init
+    _, _, iterations = st.node_stats()
+    assert iterations > 0
+
+
+def _multiseq_run(dev, S, kind, ba_every, frames, chunk, eager=False, before_chunk=None):
+    """MultiSeqSlam(num_seqs=S) at the entry configuration over `frames`
+    (_multiseq_inputs) in chunks of `chunk`, captured or (eager) through its
+    eager route; before_chunk(c, run) runs chunk c as it likes.  Returns
+    (the system, its packed outputs (S, n, 14))."""
+    from flvis_tpu_torch.parallel.multiseq_loop import MultiSeqSlam
+
+    cfg, cam = _entry_system(dev)
+    i0, i1, ts, imu = frames
+    ms = MultiSeqSlam(cfg, cam, num_seqs=S, use_imu=kind == "vio", use_loop=False,
+                      ba_every=ba_every, device=dev)
+    if eager:
+        ms._run_chunk = ms._run_chunk_eager
+    outs = []
+    for c in range(0, i0.shape[1], chunk):
+        sl = slice(c, c + chunk)
+
+        def run(sl=sl):
+            if kind == "vio":
+                outs.append(ms.process_chunk_vio(i0[:, sl], i1[:, sl], ts[:, sl],
+                                                 *(a[:, sl] for a in imu)))
+            else:
+                outs.append(ms.process_chunk(i0[:, sl], i1[:, sl], ts[:, sl]))
+
+        (before_chunk or (lambda c, run: run()))(c // chunk, run)
+    return ms, np.concatenate(outs, axis=1)
+
+
+def test_multiseq_profiled_after_an_earlier_trace(dev):
+    """A captured MultiSeqSlam(num_seqs=3) chunk replayed under
+    torch.profiler after earlier profiled runs in the process (CUPTI set up
+    and torn down before, unless the port's default keeps it up): no
+    illegal address, the replays' kernels in the trace, and the eager
+    route's bits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    a = torch.randn(64, 64, device=dev)
+    for _ in range(2):
+        with profile(activities=activities):
+            a = torch.tanh(a @ a)
+            torch.cuda.synchronize()
+    frames = _multiseq_inputs(_entry_frames(), 3)
+    events = []
+
+    def profiled(c, run):
+        if c == 0:
+            return run()
+        with profile(activities=activities) as p:
+            run()
+            torch.cuda.synchronize()
+        events.append(sum(e.device_type().name == "CUDA"
+                          for e in p.profiler.kineto_results.events()))
+
+    cap_ms, got = _multiseq_run(dev, 3, "vio", 2, frames, 4, before_chunk=profiled)
+    _, want = _multiseq_run(dev, 3, "vio", 2, frames, 4, eager=True)
+    np.testing.assert_array_equal(got, want)
+    assert cap_ms._captured["vio"].step.replays == 12 and len(events) == 2
+    assert all(n > 1000 for n in events)
+
+
+def test_multiseq_capture_holds_more_sites_than_a_block(dev):
+    """MultiSeqSlam(num_seqs=20) VIO at ba_every 2: more conds and loops in
+    the one graph (20 x ~7) than MAX_SITES, each branch's in its own block
+    of taken counts; captured equal to eager bit for bit, each site's
+    counts settled."""
+    from flvis_tpu_torch.utils import control
+
+    S = 20
+    frames = _multiseq_inputs(_entry_frames(n=6, blank=()), S)
+    cap_ms, got = _multiseq_run(dev, S, "vio", 2, frames, 6)
+    _, want = _multiseq_run(dev, S, "vio", 2, frames, 6, eager=True)
+    np.testing.assert_array_equal(got, want)
+    st = cap_ms._captured["vio"].step
+    assert len(st.sites) > control.MAX_SITES
+    assert len({x["row"] for x in st.sites}) == len(st.sites)
+    assert st.taken.shape[0] == control.MAX_SITES * (1 + S)
+    assert st.taken_total.sum() > 0 and st.replays == 6
+
+
+def test_released_capture_streams_are_reused(dev):
+    """A CapturedStep's streams return to the pool when it is released, and
+    the next capture takes them instead of making new ones; its replays
+    stay right."""
+    import gc
+
+    from flvis_tpu_torch.utils import control
+
+    def step(carry, xs):
+        outs = control.branches(lambda k: carry[k] * 2 + xs[0], range(2))
+        return tuple(outs), xs[0]
+
+    def capture():
+        carry = (torch.ones(8, device=dev), torch.full((8,), 3.0, device=dev))
+        return control.CapturedStep(step, carry, (torch.ones((), device=dev),), name="pool",
+                                    branches=2)
+
+    n = control.CapturedStep.STREAMS * 3
+    gc.collect()                # earlier tests' captures first
+    free = control._FREE_STREAMS.setdefault(dev, [])
+    before = len(free)
+    cap = capture()
+    held = len(free)
+    del cap
+    gc.collect()
+    assert len(free) == held + n and held == max(before - n, 0)
+    cap = capture()
+    assert len(free) == held
+    cap.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cap.carry[0], torch.full((8,), 3.0, device=dev))
+    assert torch.equal(cap.carry[1], torch.full((8,), 7.0, device=dev))
+
+
+def test_branches_with_schur_give_eager_bits(dev):
+    """Two branches of one captured step, each solving its own window
+    (schur kernel launches inside WHILE bodies, each branch with its own
+    last-block ticket), replayed side by side: the eager solves' bits."""
+    import chip_smoke
+    from flvis_tpu_torch.backend import window_ba
+    from flvis_tpu_torch.ops.kernels import schur
+    from flvis_tpu_torch.utils import control
+    from flvis_tpu_torch.utils.tree import tree_leaves
+
+    cfg, scfg = chip_smoke.system_config()
+    cam = chip_smoke.make_camera(scfg, dev)
+    windows = tuple(chip_smoke.bench_window(cfg.backend, cam, dev, seed=s) for s in (0, 1))
+    tickets = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+
+    def step(carry, xs):
+        def one(s):
+            with schur.use_ticket(tickets[s]):
+                res = window_ba.optimize(cfg.backend, cam, carry[s])
+            return res.state, res.cost
+        outs = control.branches(one, range(2))
+        return tuple(st for st, _ in outs), torch.stack([c for _, c in outs]) + xs[0]
+
+    zero = torch.zeros((), device=dev)
+    want = [window_ba.optimize(cfg.backend, cam, w) for w in windows]
+    cap = control.CapturedStep(step, tuple(windows), (zero,), name="two windows", branches=2)
+    launches = schur.schur_step_kernel.launches
+    cap.replay()
+    torch.cuda.synchronize()
+    assert schur.schur_step_kernel.launches == launches          # nothing outside the graph
+    for w, st in zip(want, cap.carry):
+        for a, b in zip(tree_leaves(w.state), tree_leaves(st)):
+            assert torch.equal(a, b)
+    assert torch.equal(cap.ys, torch.stack([w.cost for w in want]))
+    assert {x["branch"] for x in cap.sites} == {0, 1}
+    assert not bool(tickets.any())
+
+
+def test_captured_step_keeps_what_it_closes_over(dev):
+    """A tensor only the step's function holds (a constant made with it)
+    lives as long as the graph: fresh allocations of its size, filled with
+    other values after the capture, do not reach a replay."""
+    from flvis_tpu_torch.utils import control
+
+    def make_step():
+        const = torch.full((1024,), 3.0, device=dev)
+
+        def step(carry, xs):
+            return (carry[0] + const,), xs[0] * 2
+        return step
+
+    cap = control.CapturedStep(make_step(), (torch.zeros(1024, device=dev),),
+                               (torch.ones((), device=dev),), name="closure")
+    junk = [torch.full((1024,), -7.0, device=dev) for _ in range(64)]
+    cap.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cap.carry[0], torch.full((1024,), 3.0, device=dev)) and len(junk) == 64

@@ -4,7 +4,8 @@ and runs eagerly here) against the reference's one-program chunk
 (flvis_tpu.pipeline.runner._chunk_fused), at the entry configuration
 (__graft_entry__._small_cfg: 256×192, 64 slots) over a sequence whose two
 blank frames drive the tracker to FAIL and back through re-initialisation
-with a backend reset.  Also: utils/control.cond, window BA's sticky `done`,
+with a backend reset.  Also: utils/control.cond and while_loop, window
+BA's LM loop (a while_loop on `done`), the sites a captured step holds,
 and the fused steps' freedom from host reads.
 
 The port's step is handed the reference's draws of every frame
@@ -15,6 +16,7 @@ keyframe, reset and correction-valid flags exactly; poses 2e-4 m / 2e-5;
 BA costs 1e-3 relative; the final BA window's keyframe and landmark ids
 exactly.  The JAX chunk is compiled once for the file (module fixture)."""
 
+import contextlib
 import dataclasses
 import functools
 
@@ -187,6 +189,112 @@ def test_cond_refuses_different_trees(other):
         control.cond(torch.tensor([True]), lambda: x, lambda: x)
 
 
+def test_while_loop_eager_both_branches_and_refusal():
+    """Eagerly a Python loop on the predicate; under both_branches the
+    body runs at least once, even where the first predicate is false, and
+    the loop still returns the eager result; a body that changes the
+    carry's tree is refused there.  branches is a list comprehension
+    outside a capture."""
+    def body(c):
+        i, x = c
+        return i + 1, x * 2 + i.to(x.dtype)
+
+    def pred(c):
+        return c[0] < 5
+
+    x0 = torch.arange(3.0)
+    i, x = 0, x0.clone()
+    while i < 5:
+        x, i = x * 2 + i, i + 1
+    start = (torch.zeros((), dtype=torch.int32), x0)
+    for ctx in (contextlib.nullcontext, control.both_branches):
+        with ctx():
+            got_i, got_x = control.while_loop(pred, body, start)
+        assert int(got_i) == 5 and torch.equal(got_x, x)
+    ran = []
+
+    def counted(c):
+        ran.append(1)
+        return body(c)
+
+    done = (torch.full((), 7, dtype=torch.int32), x0)
+    with control.both_branches():
+        got = control.while_loop(pred, counted, done)
+    assert len(ran) == 1 and got is done
+    assert control.while_loop(pred, counted, done) is done and len(ran) == 1
+
+    def widens(c):
+        return c[0] + 1, torch.cat([c[1], c[1]])
+
+    with control.both_branches(), pytest.raises(ValueError, match="another tree"):
+        control.while_loop(pred, widens, start)
+    assert control.branches(lambda k: 2 * k, range(3)) == [0, 2, 4]
+
+
+def test_capture_sites_take_rows_of_their_branch():
+    """A capture's sites take rows of the taken counts in blocks of
+    MAX_SITES — the step's own, then one block a branch — so S branches
+    hold S x MAX_SITES sites; a full block refuses one more, naming its
+    branch."""
+    M = control.MAX_SITES
+    cap = control._Capture(None, None, [[None] * 4] * 3)
+    rows = [cap._site("top", "if")[0]]
+    for b in (0, 1):
+        cap.branch = b
+        rows += [cap._site(f"branch {b}", "while")[0] for _ in range(M)]
+    cap.branch = None
+    rows.append(cap._site("top", "if")[0])
+    assert rows == [0] + list(range(M, 3 * M)) + [1]
+    assert [s["row"] for s in cap.sites] == rows
+    cap.branch = 1
+    with pytest.raises(RuntimeError, match="in branch 1"):
+        cap._site("one too many", "if")
+
+
+@pytest.mark.parametrize("kind", ["stereo", "vio"])
+def test_captured_step_sites_do_not_grow_with_lm_steps(kind, monkeypatch):
+    """The conds and loops a captured frame step holds — one site each,
+    counted as the capture meets them: every call, with both sides of each
+    cond run — are as many at 12 + 8 LM steps as at 120 + 10, because each
+    LM phase is one while_loop (one WHILE node)."""
+    names = []
+    real_cond, real_while = control.cond, control.while_loop
+
+    def cond(pred, t, f, operands=(), name="cond"):
+        names.append(name)
+        return real_cond(pred, t, f, operands, name)
+
+    def while_loop(pred_fn, body_fn, carry, name="while"):
+        names.append(name)
+        return real_while(pred_fn, body_fn, carry, name)
+
+    monkeypatch.setattr(control, "cond", cond)
+    monkeypatch.setattr(control, "while_loop", while_loop)
+    jf, _, tf, _ = configs()
+    _, tc = cameras(jf)
+    imgs0, imgs1 = stereo_frames(blank=())
+    x = (torch.as_tensor(imgs0[0]), torch.as_tensor(imgs1[0]))
+    imu = (torch.tensor(0.05), torch.zeros(16, 3), torch.zeros(16, 3),
+           torch.linspace(0.0, 0.05, 16), torch.ones(16, dtype=torch.bool))
+    sites = []
+    for iters1, iters2 in ((12, 8), (120, 10)):
+        tb = tconfig.BackendConfig(**{**BCFG_KW, "iters1": iters1, "iters2": iters2})
+        null = twba.null_correction(tb, device="cpu")
+        draws = ttr.make_draws(tf, torch.Generator().manual_seed(0), "cpu")
+        fe, ba = ttr.init_state(tf, device="cpu"), twba.empty(tb, device="cpu")
+        names.clear()
+        with control.both_branches():
+            if kind == "stereo":
+                trunner._fused_frame_step(tf, tb, tc, null, (fe, ba, null), x, draws)
+            else:
+                vio = tvim.init_state(tconfig.VioConfig(), device="cpu")
+                trunner._fused_vio_frame_step(tf, tb, tconfig.VioConfig(), tc, tse3.identity(),
+                                              null, (fe, ba, vio, null), x + imu, draws)
+        sites.append(list(names))
+    assert sites[0] == sites[1]
+    assert sites[0].count("lm_loop") == 2 and len(sites[0]) <= 8, sites[0]
+
+
 def test_tree_walker_covers_tuples_and_lists():
     """utils/tree walks the records, NamedTuples, plain tuples and lists
     that cond and the captured step carry; tree_spec tells trees apart by
@@ -251,10 +359,11 @@ def _lm_loop_early_exit(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters, delta
 
 @pytest.mark.parametrize("case", ["noisy_init", "outliers", "converges_early"])
 def test_sticky_done_equals_early_exit_and_jax(case, monkeypatch):
-    """_lm_loop's steps under a cond on `done` give the early exit's poses,
-    landmarks and cost bit for bit — eagerly, and with every cond run as
-    the captured graph runs it (both sides, merged on the device) — and
-    the reference's optimize at the kernel-vs-XLA bounds of
+    """_lm_loop's control.while_loop on (it < iters) & ~done gives the
+    early exit's poses, landmarks and cost bit for bit — eagerly, and with
+    the loop run as a select on the predicate over a fixed count of body
+    runs (every iteration computed, the finished ones discarded on the
+    device) — and the reference's optimize at the kernel-vs-XLA bounds of
     tests/test_window_ba.py:201-207."""
     from test_torch_window_ba import JCAM, JCFG, STEP_TOL, TCAM, TCFG, _windows
 
@@ -275,7 +384,7 @@ def test_sticky_done_equals_early_exit_and_jax(case, monkeypatch):
     for a, b in zip(tree_leaves(twba._lm_loop(*args)), early):
         assert torch.equal(a, b)
     with monkeypatch.context() as m:
-        m.setattr(control, "cond", _select_cond)
+        m.setattr(control, "while_loop", functools.partial(_select_while, bound=TCFG.iters1))
         for a, b in zip(tree_leaves(twba._lm_loop(*args)), early):
             assert torch.equal(a, b)
     jr, tr = jwba.optimize(JCFG, JCAM, js), twba.optimize(TCFG, TCAM, ts)
@@ -294,6 +403,15 @@ def _select_cond(pred, true_fn, false_fn, operands=(), name="cond"):
                     false_fn(*operands))
 
 
+def _select_while(pred_fn, body_fn, carry, name="while", *, bound):
+    """while_loop without a host read: `bound` runs of the body (at least
+    the loop's iteration count), each kept where the predicate held."""
+    for _ in range(bound):
+        p = pred_fn(carry)
+        carry = tree_map(lambda a, b: torch.where(p, a, b), body_fn(carry), carry)
+    return carry
+
+
 @pytest.mark.parametrize("kind", ["stereo", "vio"])
 def test_fused_steps_read_no_host_value(kind, monkeypatch):
     """Every path of the fused step (each cond's both sides), from the
@@ -309,6 +427,8 @@ def test_fused_steps_read_no_host_value(kind, monkeypatch):
     null = twba.null_correction(tb, device="cpu")
     gen = torch.Generator().manual_seed(0)
     monkeypatch.setattr(control, "cond", _select_cond)
+    monkeypatch.setattr(control, "while_loop",
+                        functools.partial(_select_while, bound=max(tb.iters1, tb.iters2)))
     feed = tvim.imu_feed_batch
 
     def feed_unchecked(*a, **kw):

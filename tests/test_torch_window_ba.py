@@ -201,3 +201,20 @@ def test_optimize_matches_jax(case):
             dt, dr = tse3.distance(T_est, tse3.SE3(torch.as_tensor(np.array(g.q)),
                                                    torch.as_tensor(np.array(g.t))))
             assert float(dt) < 5e-3 and float(dr) < 2e-3
+
+
+def test_optimize_long_lm_loops_match_jax():
+    """iters1 = 120, iters2 = 10 (more LM steps than a captured step could
+    hold when each step was a cond of its own): the port's optimize, one
+    while_loop a phase, against the reference's optimize on the window of
+    test_optimize_matches_jax's noisy_init case, within STEP_TOL."""
+    kw = {**KW, "iters1": 120, "iters2": 10}
+    jcfg, tcfg = jconfig.BackendConfig(**kw), tconfig.BackendConfig(**kw)
+    js, ts = _windows(noise=0.0, pose_noise=0.02, pw_noise=0.1, seed=2)
+    jr, tr = jwba.optimize(jcfg, JCAM, js), twba.optimize(tcfg, TCAM, ts)
+    live = np.asarray(jr.state.lm_valid)
+    np.testing.assert_array_equal(tr.state.lm_valid.numpy(), live)
+    assert float(np.abs(tr.state.kf_t.numpy() - np.asarray(jr.state.kf_t)).max()) <= STEP_TOL["t"]
+    assert float(np.abs(tr.state.kf_q.numpy() - np.asarray(jr.state.kf_q)).max()) <= STEP_TOL["q"]
+    assert float(np.abs(tr.state.lm_pw.numpy()[live]
+                        - np.asarray(jr.state.lm_pw)[live]).max()) <= STEP_TOL["lm"]
