@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--parent DIR]
     python3 chip_smoke.py --mma-rates
     python3 chip_smoke.py --phase-c
+    python3 chip_smoke.py --phase-de
 
 Builds the port's CUDA kernels from flvis_tpu_torch/csrc/, holds each
 kernel against its plain PyTorch version at the shapes the main paths give
@@ -41,7 +42,25 @@ paths of the port at the EuRoC-sized bench configuration:
      and the host time of one cudaGraphLaunch, and fails unless both runs
      give the same outputs, closures and ATE bit for bit; replays of its
      graph from one state must give the same bits each time.  Phase c
-     runs in a process of its own (`--phase-c`, see phase_c).
+     runs in a process of its own (`--phase-c`, see phase_c);
+  e. RGB-D — SlamSystem with depth_mode (baseline 0, depth_factor 1000, a
+     float32 Z16 depth image as the second input) at the same system
+     configuration: process_frames over (a)'s 64-frame orbit, and
+     process_frames_vio with use_loop=True over (b)'s 256-frame
+     out-and-back, each captured and eager on the same frames and draws,
+     bit-equal (closures and ATE too); every frame tracks, sweep never
+     launches; the trajectory through io/trajectory (TUM, KITTI) read back
+     and utils/evaluation.ate_rmse against the run's ATE; and, where cv2
+     imports, the synthetic EuRoC-format sequence through io/euroc;
+  d. the long run — tests/test_longrun.py's 1,100 keyframes (160×120)
+     through the port's LoopCloser in chunks of 32, with its assertions
+     (store ≥ 2,048 rows, refreshes past 1,024, ≥ 3 closures, a window
+     past 256 keyframes: the banded PGO, drift corrected); PGO ms a call
+     by route and n_pad, the last banded PGO twice more bit-equal, host
+     syncs per banded LM iteration, banded against dense at K = 64 and the
+     cold 2,048-node ring at 20 against 100 iterations.  Phases e and d
+     run in a process of their own (`--phase-de`), e's steps captured
+     before its first trace.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after (a captured step is captured before that, its warm-up's
@@ -67,6 +86,7 @@ mma.sync forms a Hamming distance can run on (see mma_rates).
 """
 
 import collections
+import functools
 import json
 import statistics
 import subprocess
@@ -124,6 +144,7 @@ CHAIN_DEP_CYCLES = 25 * 4 + 16
 
 
 SMI = "card not read yet"            # nvidia-smi's name and power limit, set by main()
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -240,6 +261,72 @@ def make_camera(scfg, device):
 
 def u8(a):
     return np.clip(np.round(np.asarray(a)), 0, 255).astype(np.uint8)
+
+
+def z16(depth_m):
+    """A depth image in metres as a D435's Z16 image (millimetres, integers),
+    float32: the second input of the RGB-D mode (depth_factor 1000)."""
+    return np.clip(np.round(1000.0 * np.asarray(depth_m)), 0, 65535).astype(np.float32)
+
+
+_MEMO = {}
+RENDERS = "CHIP_SMOKE_RENDERS"          # the directory main() shares renders in
+
+
+def once(fn=None, *, shared: bool = False):
+    """fn's result, made once per process for each repr of its arguments —
+    a path's captured and eager runs take the same rendered frames, and
+    rendering them takes longer than running them; `shared`: also once for
+    the phases' processes, through files in the directory main() names in
+    the environment variable RENDERS (phase e renders (a)'s and (b)'s
+    frames)."""
+    if fn is None:
+        return functools.partial(once, shared=shared)
+
+    @functools.wraps(fn)
+    def run(*a):
+        key = (fn.__name__, repr(a))
+        if key not in _MEMO:
+            _MEMO[key] = stored(key, lambda: fn(*a)) if shared else fn(*a)
+        return _MEMO[key]
+
+    return run
+
+
+def stored(key, make):
+    """make()'s result through a pickle file named by `key` in the RENDERS
+    directory (made and read by this script only): loaded if another
+    process of the run wrote it, else made and written."""
+    import hashlib
+    import os
+    import pickle
+
+    d = os.environ.get(RENDERS)
+    if not d:
+        return make()
+    path = Path(d) / f"{key[0]}-{hashlib.sha1(key[1].encode()).hexdigest()[:16]}.pkl"
+    if path.exists():
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    out = make()
+    tmp = path.with_suffix(".part")
+    with open(tmp, "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    tmp.replace(path)
+    return out
+
+
+@once(shared=True)
+def orbit_frames(scfg):
+    """(a)'s 64-frame orbit: its poses, uint8 left and right images and Z16
+    depth images."""
+    from flvis_tpu_torch.io.synthetic import PlanarScene, orbit_trajectory
+
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=0)
+    poses = orbit_trajectory(N_FRAMES, step=0.02)
+    frames = [scene.render(R, t) for (R, t) in poses]
+    return (poses, np.stack([u8(f[0]) for f in frames]), np.stack([u8(f[1]) for f in frames]),
+            np.stack([z16(f[2]) for f in frames]))
 
 
 def bench_window(bcfg, cam, device, n_lm: int = 600, seed: int = 0):
@@ -987,17 +1074,14 @@ IN_GRAPH = ("grad_blur", "schur_step", "imu_chain", "gather")
 LAUNCH_GLOBALS = {k: v[:1] if k == "schur_step" else v for k, v in KERNEL_FNS.items()}
 
 
-def replay_launches(avg, before) -> dict:
+def replay_launches(names, before) -> dict:
     """{kernel: launches of a captured step's replays in a profiled window}:
-    its device events in the window's profile (key averages `avg`, or a
-    {device event name: count} mapping), less the launches its wrappers
-    counted in the window (`before`: read_counts() at its start), which ran
-    outside the graph.  A replay runs no wrapper, so this is the only count
-    of a replay's launches."""
-    if not isinstance(avg, dict):
-        avg = {e.key: e.count for e in avg if e.device_type.name == "CUDA"}
+    its device events in the window's profile ({device event name: count}),
+    less the launches its wrappers counted in the window (`before`:
+    read_counts() at its start), which ran outside the graph.  A replay runs
+    no wrapper, so this is the only count of a replay's launches."""
     after = read_counts()
-    events = {k: sum(n for key, n in avg.items() if any(f in key for f in fns))
+    events = {k: sum(n for key, n in names.items() if any(f in key for f in fns))
               for k, fns in LAUNCH_GLOBALS.items()}
     return {k: events[k] - (after[k] - before[k]) for k in events}
 
@@ -1085,36 +1169,63 @@ def count_chunk_syncs(slam, call: int, out: dict):
     slam._run_chunk = run
 
 
+def trace_events(run):
+    """run() under torch.profiler, host and device activities: (wall ms, the
+    profile's raw events).  Read raw, the events skip the profiler's Python
+    records of each one (key_averages), which took tens of seconds for an
+    eager chunk's ~10^5 events and a chunk of (c)'s ~10^6."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        run()
+        wall = 1000.0 * (time.perf_counter() - t0)
+    return wall, list(p.profiler.kineto_results.events())
+
+
+def host_self_ms(events) -> dict:
+    """{host op name: self ms} of the raw events: each host event's time
+    less that of the events nested in it on its thread."""
+    from torch.autograd import DeviceType
+
+    threads = collections.defaultdict(list)
+    for e in events:
+        if e.device_type() == DeviceType.CPU:
+            threads[e.start_thread_id()].append((e.start_ns(), -e.end_ns(), e.name()))
+    out = collections.Counter()
+    for evs in threads.values():
+        evs.sort()
+        stack = []                      # [start, end, name, children's time]
+
+        def close(until):
+            while stack and stack[-1][1] <= until:
+                a, b, name, inner = stack.pop()
+                out[name] += (b - a - inner) / 1e6
+                if stack:
+                    stack[-1][3] += b - a
+
+        for a, neg_b, name in evs:
+            close(a)
+            stack.append([a, -neg_b, name, 0])
+        close(float("inf"))
+    return dict(out)
+
+
 def profile_window(run):
     """run() under torch.profiler: (wall ms, device kernel ms, device kernel
-    events, the profile's key averages)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        run()
-        wall = 1000.0 * (time.perf_counter() - t0)
-    avg = p.key_averages()
-    dev_ms = sum(e.self_device_time_total for e in avg if e.device_type.name == "CUDA") / 1000.0
-    n_events = sum(e.count for e in avg if e.device_type.name == "CUDA")
-    return wall, dev_ms, n_events, avg
+    events, {device event name: count}, {host op name: self ms})."""
+    wall, events = trace_events(run)
+    summed, _, n_events, names = device_spans(events)
+    return wall, summed, n_events, names, host_self_ms(events)
 
 
-def device_window(run):
-    """run() under torch.profiler, its events read raw (a chunk of (c)
-    holds ~10^6 of them, too many for key_averages): (wall ms, device event
-    time summed ms, the union of the device events' intervals ms, device
-    events, {device event name: count}).  Host and device activities, as
-    profile_window traces."""
+def device_spans(events):
+    """The device events of a raw profile: (their time summed ms, the union
+    of their intervals ms, their number, {name: count})."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        run()
-        wall = 1000.0 * (time.perf_counter() - t0)
     spans, names = [], collections.Counter()
-    for e in p.profiler.kineto_results.events():
+    for e in events:
         if e.device_type() == DeviceType.CUDA:
             spans.append((e.start_ns(), e.end_ns()))
             names[e.name()] += 1
@@ -1128,7 +1239,15 @@ def device_window(run):
             union += b - end
             end = b
     summed = sum(b - a for a, b in spans)
-    return wall, summed / 1e6, union / 1e6, len(spans), dict(names)
+    return summed / 1e6, union / 1e6, len(spans), dict(names)
+
+
+def device_window(run):
+    """run() under torch.profiler, its events read raw: (wall ms, device
+    event time summed ms, the union of the device events' intervals ms,
+    device events, {device event name: count})."""
+    wall, events = trace_events(run)
+    return (wall,) + device_spans(events)
 
 
 def graph_report(slam, label) -> dict:
@@ -1138,7 +1257,9 @@ def graph_report(slam, label) -> dict:
     WHILE's (iterations, entries)).  A tree whose node_stats has no WHILE
     count reads 0 there."""
     out = {}
-    for kind, cap in getattr(slam, "_captured", {}).items():
+    for key, cap in getattr(slam, "_captured", {}).items():
+        kind = key if isinstance(key, str) else key[0]      # a tree keyed by kind alone, or
+                                                            # by (kind, input dtypes)
         st = cap.step
         nodes, bodies, iterations = (tuple(st.node_stats()) + (0.0,))[:3]
         taken = st.taken_by_name()
@@ -1199,15 +1320,10 @@ def run_slice(cfg, scfg, cam, device, eager: bool = False):
     the captured step, or with `eager` the eager composition on the same
     frames and draws.  Chunks: the first (the capture), one whose step's
     host syncs are counted, one profiled, the timed rest."""
-    from flvis_tpu_torch.io.synthetic import PlanarScene, orbit_trajectory
     from flvis_tpu_torch.pipeline.runner import SlamSystem
 
     label = "slice eager" if eager else "slice"
-    scene = PlanarScene(scfg, plane_depth=8.0, seed=0)
-    poses = orbit_trajectory(N_FRAMES, step=0.02)
-    frames = [scene.render(R, t) for (R, t) in poses]
-    imgs0 = np.stack([u8(f[0]) for f in frames])
-    imgs1 = np.stack([u8(f[1]) for f in frames])
+    poses, imgs0, imgs1, _ = orbit_frames(scfg)
     slam = SlamSystem(cfg, cam, device=device, seed=0)
     if eager:
         use_eager_chunks(slam)
@@ -1226,8 +1342,8 @@ def run_slice(cfg, scfg, cam, device, eager: bool = False):
         torch.cuda.synchronize()
         if k == 2:
             c0 = read_counts()
-            _, dev_ms, n_events, avg = profile_window(run)
-            replayed = replay_launches(avg, c0)
+            _, dev_ms, n_events, names, _ = profile_window(run)
+            replayed = replay_launches(names, c0)
             continue
         t0 = time.perf_counter()
         run()
@@ -1318,7 +1434,7 @@ def check_rare_branches(cfg, scfg, cam, device) -> None:
             runs.append({"outs": [slam.process_frames(imgs0, imgs1)],
                          "costs": list(slam.ba_costs), "slam": slam})
         compare_runs(f"rare branches, {name}", runs[0], runs[1])
-        st = runs[0]["slam"]._captured["stereo"].step
+        st = next(iter(runs[0]["slam"]._captured.values())).step
         taken = st.taken_by_name()
         status = runs[0]["outs"][0].status
         print(f"rare branches, {name}: statuses {status.tolist()}; taken (true, false) "
@@ -1344,7 +1460,9 @@ class StageTimer:
 
     PROBES, PROBE_CALLS = 8, 10
 
-    def __init__(self):
+    def __init__(self, probe: bool = True):
+        self.probe = probe      # off: no stage is probed (an eager run, whose loop node
+                                # and stages the captured run's probes already read)
         self.ms, self.calls, self.units, self._real = {}, {}, {}, []
         self.probe_s = 0.0      # wall seconds spent in probes
         self.probed = {}        # label -> [(device events, host syncs, units)] of probed calls
@@ -1371,7 +1489,8 @@ class StageTimer:
             self.calls[label] = self.calls.get(label, 0) + 1
             self.units[label] = self.units.get(label, 0) + n
             probed = self.probed.setdefault(label, [])
-            if probe_every and self.calls[label] % probe_every == 0 and len(probed) < self.PROBES:
+            if (self.probe and probe_every and self.calls[label] % probe_every == 0
+                    and len(probed) < self.PROBES):
                 tp = time.perf_counter()
                 probed.append(self._probe(real, a, kw) + (n,))
                 self.probe_s += time.perf_counter() - tp
@@ -1424,10 +1543,11 @@ class StageTimer:
             setattr(obj, name, real)
 
 
-def loop_sequence(scfg):
-    """The bench's loop-event sequence (bench.py:368-380): 256 frames out
-    along x and back, with IMU split per frame."""
-    from flvis_tpu_torch.io.synthetic import PlanarScene, imu_from_trajectory
+@once(shared=True)
+def loop_frames(scfg):
+    """The frames of loop_sequence: poses, uint8 left and right images, Z16
+    depth images, and the path length."""
+    from flvis_tpu_torch.io.synthetic import PlanarScene
 
     scene = PlanarScene(scfg, plane_depth=8.0, seed=0)
     half = LOOP_FRAMES // 2
@@ -1435,6 +1555,18 @@ def loop_sequence(scfg):
                          np.linspace(0.02 * half, 0.01, LOOP_FRAMES - half)])
     poses = [(np.eye(3), -np.asarray([x, 0.0, 0.0])) for x in xs]
     frames = [scene.render(R, t) for (R, t) in poses]
+    return (poses, np.stack([u8(f[0]) for f in frames]), np.stack([u8(f[1]) for f in frames]),
+            np.stack([z16(f[2]) for f in frames]), float(np.sum(np.abs(np.diff(xs)))))
+
+
+def loop_sequence(scfg, depth: bool = False):
+    """The bench's loop-event sequence (bench.py:368-380): 256 frames out
+    along x and back, with IMU split per frame; with `depth`, the second
+    image of each frame is its Z16 depth image (z16) instead of the right
+    image."""
+    from flvis_tpu_torch.io.synthetic import imu_from_trajectory
+
+    poses, left, right, depth_imgs, path = loop_frames(scfg)
     t_imu, gyro, acc, frame_t = imu_from_trajectory(poses, fps=20.0)
     accs, gyros, imuts = [], [], []
     prev = -np.inf
@@ -1442,9 +1574,7 @@ def loop_sequence(scfg):
         m = (t_imu > prev) & (t_imu <= ft)
         accs.append(acc[m]); gyros.append(gyro[m]); imuts.append(t_imu[m])
         prev = ft
-    path = float(np.sum(np.abs(np.diff(xs))))
-    return (poses, np.stack([u8(f[0]) for f in frames]), np.stack([u8(f[1]) for f in frames]),
-            frame_t, accs, gyros, imuts, path)
+    return (poses, left, depth_imgs if depth else right, frame_t, accs, gyros, imuts, path)
 
 
 NESTED = ("verification",)              # timed inside "loop gate decisions + verify" too
@@ -1495,10 +1625,11 @@ def verification_summary(timer, accepted, label) -> dict:
         accepted = [(q,) + c for q, seq in enumerate(accepted) for c in seq]
     out = {"pairs": timer.units["verification"], "calls": timer.calls["verification"],
            "ms_per_pair": ms, "events_per_pair": ev, "closures": accepted}
+    probed = (f"{ev:.1f} device events per verified pair over {len(p)} probed calls (per call "
+              f"{[e for e, _, _ in p]}, pairs {[n for _, _, n in p]}, host syncs "
+              f"{[h for _, h, _ in p]})" if p else "not probed")
     print(f"{label} verification: {ms:.4f} synced ms per verified pair over {out['pairs']} "
-          f"pairs in {out['calls']} calls; {ev:.1f} device events per verified pair over "
-          f"{len(p)} probed calls (per call {[e for e, _, _ in p]}, pairs {[n for _, _, n in p]},"
-          f" host syncs {[h for _, h, _ in p]})")
+          f"pairs in {out['calls']} calls; {probed}")
     return out
 
 
@@ -1543,7 +1674,7 @@ def run_headline(cfg, scfg, cam, device, eager: bool = False):
     else:
         capture_first(slam, "vio", label, frame_inputs(device, imgs0, imgs1, "vio"))
     lc = slam.loop_closer
-    timer = StageTimer()
+    timer = StageTimer(probe=not eager)
     accepted = []
     wrap_loop_node(timer, lc, accepted)
     pgo_calls = record_pgo(timer)
@@ -1581,14 +1712,12 @@ def run_headline(cfg, scfg, cam, device, eager: bool = False):
             # The profiled window keeps its stage calls out of the stage timer.
             timer.on = False
             c0 = read_counts()
-            wall, dev_ms, n_events, avg = profile_window(run)
-            replayed = replay_launches(avg, c0)
+            wall, dev_ms, n_events, names, host = profile_window(run)
+            replayed = replay_launches(names, c0)
             timer.on = True
-            host = sorted((e for e in avg if e.device_type.name == "CPU"),
-                          key=lambda e: -e.self_cpu_time_total)[:8]
-            print(f"{label} profile, top host ops (self CPU ms, calls): "
-                  + ", ".join(f"{e.key} {e.self_cpu_time_total / 1000.0:.1f} x{e.count}"
-                              for e in host))
+            print(f"{label} profile, top host ops (self CPU ms): "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in
+                              sorted(host.items(), key=lambda kv: -kv[1])[:8]))
     tc, pc, s0 = time.perf_counter(), timer.probe_s, staged_ms()
     slam.flush_loop()                   # the last chunks' gate and verification
     torch.cuda.synchronize()
@@ -1728,6 +1857,7 @@ def closure_errors(lc, C_gt):
     return out
 
 
+@once
 def multiseq_sequence(scfg):
     """Phase c's input: S = MS_SEQS sequences of a 64-frame out-and-back (0
     → 0.6 m → back, plane at 8 m) with IMU; sequences 2..S-1 rolled
@@ -1869,7 +1999,7 @@ def run_multiseq(cfg, scfg, cam, device, eager: bool = False):
         use_eager_chunks(ms)
     else:
         capture_first(ms, "vio", label, chunk_inputs(device, imgs0, imgs1, ts, imu, 0))
-    timer = StageTimer()
+    timer = StageTimer(probe=not eager)
     if eager or not hasattr(ms, "_captured_step"):
         wrap_frame_stages(timer)
     accepted = [[] for _ in ms.loopers]
@@ -2226,14 +2356,580 @@ def mma_rates() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase d: the long run (tests/test_longrun.py:55-160's scenario through the
+# port's loop node) and the banded PGO's own checks.
+
+LONG_KF, LONG_LEG, LONG_STEP, LONG_DRIFT, LONG_CHUNK = 1100, 200, 0.02, 2e-3, 32
+
+
+def long_run_inputs(device):
+    """The long run's loop configuration, camera, renders and poses: 1,100
+    keyframes at 160×120 on a triangle wave of 4 m legs over one plane at
+    4 m (fx 160, baseline 0.2), odometry drifting 2 mm a keyframe."""
+    from flvis_tpu_torch.config import LoopConfig
+    from flvis_tpu_torch.geometry import camera
+    from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig
+
+    scfg = SceneConfig(width=160, height=120, fx=160.0, fy=160.0, cx=80.0, cy=60.0,
+                       baseline=0.2)
+    scene = PlanarScene(scfg, plane_depth=4.0, seed=7)
+    cam = camera.make(scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline, width=scfg.width,
+                      height=scfg.height, device=device)
+    cfg = LoopConfig(max_keyframes=128, num_orb_features=64, vocab_words=128,
+                     vocab_refresh_at=64, kf_start=60, kf_dist=50, search_window=5000,
+                     kf_max_dist=50, nkf_closest=2, min_pts=12, min_score=0.03,
+                     ratio_ransac=0.3, ransac_hypotheses=64, pgo_iters=100)
+
+    def x_of(k):
+        phase = k % (2 * LONG_LEG)
+        return LONG_STEP * (phase if phase <= LONG_LEG else 2 * LONG_LEG - phase)
+
+    keys = [round(x_of(k) / LONG_STEP) for k in range(LONG_KF)]
+    renders = {key: scene.render(np.eye(3), np.asarray([-key * LONG_STEP, 0.0, 0.0]))
+               for key in sorted(set(keys))}
+    gt_t = np.asarray([[-x_of(k), 0.0, 0.0] for k in range(LONG_KF)], np.float32)
+    odo_t = gt_t + np.asarray([[0.0, -LONG_DRIFT * k, 0.0] for k in range(LONG_KF)], np.float32)
+    return cfg, cam, renders, keys, gt_t, odo_t
+
+
+def count_thomas(timer) -> list:
+    """Count pose_graph._thomas_solve's calls — one Thomas pass a banded LM
+    iteration — into the returned one-item list, until timer.restore()."""
+    from flvis_tpu_torch.loop import pose_graph
+
+    iters = [0]
+    real = pose_graph._thomas_solve
+
+    def thomas(*a):
+        iters[0] += 1
+        return real(*a)
+
+    timer.patch(pose_graph, "_thomas_solve", thomas)
+    return iters
+
+
+def record_pgo_routes(timer):
+    """Time every pose_graph.optimize (dense) and optimize_banded call, synced
+    (route, n_pad, ms, LM iterations of a banded call), and keep every
+    call's arguments and result, until timer.restore()."""
+    from flvis_tpu_torch.loop import pose_graph
+
+    calls = {"dense": [], "banded": []}
+    iters = count_thomas(timer)
+
+    def route(name, real):
+        def run(graph, fixed, **kw):
+            torch.cuda.synchronize()
+            t0, i0 = time.perf_counter(), iters[0]
+            out = real(graph, fixed, **kw)
+            torch.cuda.synchronize()
+            calls[name].append({"n_pad": graph.num_nodes, "ms": 1000.0 * (time.perf_counter() - t0),
+                                "iterations": iters[0] - i0, "args": (graph, fixed, kw),
+                                "out": out})
+            return out
+        return run
+
+    timer.patch(pose_graph, "optimize", route("dense", pose_graph.optimize))
+    timer.patch(pose_graph, "optimize_banded", route("banded", pose_graph.optimize_banded))
+    return calls
+
+
+def band_graph(node_q, node_t, band_src, loop_src, n, loops, device, n_succ=5, loop_pad=8):
+    """A pose graph shaped like loop_closing._build_graph's output over K =
+    len(node_q) nodes, the first n valid: the n_succ·K sequential edges
+    first (weights 1/s, measured on band_src's poses), then a bucket of
+    loop_pad loop edges (weight 5, measured on loop_src's; the unused ones
+    invalid), as tests/test_pose_graph.py builds its graphs.  Poses are
+    (q (K, 4), t (K, 3)) numpy arrays."""
+    from flvis_tpu_torch.geometry import se3
+    from flvis_tpu_torch.loop import pose_graph
+
+    K = len(node_q)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    def rel(src, i, j):
+        T = se3.SE3(f32(src[0]), f32(src[1]))
+        return se3.compose(se3.inverse(se3.SE3(T.q[i], T.t[i])), se3.SE3(T.q[j], T.t[j]))
+
+    a = np.arange(K)
+    bi = np.concatenate([a] * n_succ)
+    bj = np.concatenate([np.minimum(a + s, K - 1) for s in range(1, n_succ + 1)])
+    li, lj = np.zeros(loop_pad, np.int64), np.zeros(loop_pad, np.int64)
+    for e, (i, j) in enumerate(loops):
+        li[e], lj[e] = i, j
+    band, loop = rel(band_src, i64(bi), i64(bj)), rel(loop_src, i64(li), i64(lj))
+    lv = np.arange(loop_pad) < len(loops)
+    loop_q = torch.where(f32(lv)[:, None] > 0, loop.q, f32([[1.0, 0, 0, 0]]))
+    loop_t = torch.where(f32(lv)[:, None] > 0, loop.t, 0.0)
+    valid = np.concatenate([a + s < n for s in range(1, n_succ + 1)] + [lv])
+    w = np.concatenate([np.full(K, 1.0 / s) for s in range(1, n_succ + 1)]
+                       + [np.full(loop_pad, 5.0)])
+    g = pose_graph.PoseGraph(
+        node_q=f32(node_q), node_t=f32(node_t), node_valid=i64(a < n).bool(),
+        edge_i=i64(np.concatenate([bi, li])), edge_j=i64(np.concatenate([bj, lj])),
+        edge_q=torch.cat([band.q, loop_q]), edge_t=torch.cat([band.t, loop_t]),
+        edge_valid=i64(valid).bool(), edge_weight=f32(w))
+    return g, n_succ * K
+
+
+def reference_style_graph(device, K=64, n=50, loops=((0, 45), (3, 47)), noise=0.05, seed=0):
+    """tests/test_pose_graph.py:_reference_style_graph: a ring of n of K
+    nodes at identity rotations, nodes noisy, edges true."""
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 2 * np.pi, n)
+    q = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (K, 1))
+    t = np.zeros((K, 3), np.float32)
+    t[:n] = 5.0 * np.stack([np.cos(th), np.sin(th), 0 * th], -1)
+    noisy = t + rng.normal(0, noise, t.shape).astype(np.float32) * (np.arange(K) < n)[:, None]
+    return band_graph(q, noisy, (q, t), (q, t), n, loops, device, loop_pad=16)
+
+
+def cold_drifted_ring(device, K=2048, n=2000, yaw_drift=5e-5, t_drift=6e-4):
+    """tests/test_pose_graph.py:_cold_drifted_ring: a 126 m ring whose
+    odometry drifts (yaw and forward bias a step), nodes at the drifted
+    odometry, one loop edge (0, n − 10) carrying the whole drift.  Returns
+    (graph, band_edges, ground-truth t (K, 3), the drift at node n − 10)."""
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    pos_gt = np.stack([20.0 * np.cos(th), 20.0 * np.sin(th), 0 * th], -1)
+    yaw_gt = th + np.pi / 2
+    yaw_d, pos_d = np.zeros(n), np.zeros((n, 3))
+    yaw_d[0], pos_d[0] = yaw_gt[0], pos_gt[0]
+    for i in range(n - 1):
+        c, s = np.cos(yaw_d[i] - yaw_gt[i]), np.sin(yaw_d[i] - yaw_gt[i])
+        Rz = np.asarray([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+        pos_d[i + 1] = pos_d[i] + Rz @ (pos_gt[i + 1] - pos_gt[i]) + t_drift * np.asarray(
+            [np.cos(yaw_d[i]), np.sin(yaw_d[i]), 0.0])
+        yaw_d[i + 1] = yaw_d[i] + (yaw_gt[i + 1] - yaw_gt[i]) + yaw_drift
+
+    def padded(yaw, pos):
+        q = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (K, 1))
+        t = np.zeros((K, 3), np.float32)
+        q[:n] = np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw, np.sin(yaw / 2)], -1)
+        t[:n] = pos
+        return q, t
+
+    drifted, truth = padded(yaw_d, pos_d), padded(yaw_gt, pos_gt)
+    g, band_edges = band_graph(*drifted, drifted, truth, n, [(0, n - 10)], device)
+    return g, band_edges, truth[1], float(np.linalg.norm(pos_d[n - 10] - pos_gt[n - 10]))
+
+
+def check_banded_solver(device) -> None:
+    """The banded PGO's card checks beside the long run: banded against dense
+    at K = 64 within tests/test_pose_graph.py's 2e-5, and the cold 2,048-node
+    ring at 20 LM iterations against 100 within its bounds (cost ≤ 1.05×,
+    max |Δt| < 0.01 m, node 1,990's error < 0.3 × the drift)."""
+    from flvis_tpu_torch.loop import pose_graph
+
+    g, be = reference_style_graph(device)
+    fixed = torch.zeros(64, dtype=torch.bool, device=device)
+    fixed[0] = True
+    gd, _ = pose_graph.optimize(g, fixed, iters=25)
+    gb, _ = pose_graph.optimize_banded(g, fixed, band_edges=be, iters=25)
+    d = max(float((gb.node_t[:50] - gd.node_t[:50]).abs().max()),
+            float((gb.node_q[:50] - gd.node_q[:50]).abs().max()))
+    print(f"banded vs dense PGO at K = 64 (25 LM steps): max |Δ| {d:.3e} (bound 2e-5) [{SMI}]")
+    if not d < 2e-5:
+        fail(f"banded and dense PGO differ by {d} at K = 64")
+    g, be, t_gt, drift = cold_drifted_ring(device)
+    fixed = torch.zeros(2048, dtype=torch.bool, device=device)
+    fixed[0] = True
+    res = {}
+    for it in (20, 100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[it] = pose_graph.optimize_banded(g, fixed, band_edges=be, iters=it)
+        torch.cuda.synchronize()
+        res[it] += (1000.0 * (time.perf_counter() - t0),)
+    (g20, c20, ms20), (g100, c100, ms100) = res[20], res[100]
+    c20, c100 = float(c20), float(c100)
+    dmax = float(torch.linalg.vector_norm(g20.node_t[:2000] - g100.node_t[:2000], dim=-1).max())
+    err20 = float(np.linalg.norm(g20.node_t[1990].cpu().numpy() - t_gt[1990]))
+    print(f"cold 2,048-node ring (drift {drift:.3f} m at node 1,990, one loop edge): 20 LM "
+          f"iterations cost {c20:.4f} in {ms20:.1f} ms, 100 cost {c100:.4f} in {ms100:.1f} ms; "
+          f"max |Δt| {dmax:.5f} m (bound 0.01); node 1,990 error {err20:.4f} m (bound "
+          f"{0.3 * drift:.4f}) [{SMI}]")
+    if not (drift > 1.0 and c20 <= 1.05 * c100 + 1e-6 and dmax < 0.01 and err20 < 0.3 * drift):
+        fail("the cold 2,048-node ring at 20 LM iterations is outside the 100-iteration bounds")
+
+
+def run_long(device) -> dict:
+    """Phase d: tests/test_longrun.py's 1,100 keyframes through the port's
+    LoopCloser in chunks of 32 (add_keyframes_batch, detect_loops_batch,
+    optimize_graph), held to that test's assertions; PGO ms per call by
+    route and n_pad; the last banded PGO twice more, bit-equal; host syncs
+    per banded LM iteration; then check_banded_solver."""
+    from flvis_tpu_torch.loop import loop_closing
+
+    cfg, cam, renders, keys, gt_t, odo_t = long_run_inputs(device)
+    lc = loop_closing.LoopCloser(cfg, cam, device=device)
+    timer = StageTimer()
+    pgo = record_pgo_routes(timer)
+    timer.wrap(lc, "add_keyframes_batch", "loop ingest")
+    timer.wrap(lc, "detect_loops_batch", "loop gate + verify")
+    reset_counts()
+    t0 = time.perf_counter()
+    for c0 in range(0, LONG_KF, LONG_CHUNK):
+        ks_range = list(range(c0, min(c0 + LONG_CHUNK, LONG_KF)))
+        il = np.stack([renders[keys[k]][0] for k in ks_range]).astype(np.float32)
+        ir = np.stack([renders[keys[k]][1] for k in ks_range]).astype(np.float32)
+        q = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (len(il), 1))
+        ks = lc.add_keyframes_batch(il, ir, list(range(len(il))), q, odo_t[ks_range], ks_range)
+        if lc.detect_loops_batch(ks):
+            lc.optimize_graph()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    timer.restore()
+
+    i0 = min(c.kf_i for c in lc.closures) if lc.closures else 0
+    j1 = max(c.kf_j for c in lc.closures) if lc.closures else 0
+    spans = [c.kf_j - c.kf_i for c in lc.closures]
+    sel = np.arange(i0, LONG_KF)
+    err_odo = float(np.linalg.norm(odo_t[sel] - gt_t[sel], axis=-1).mean())
+    # kf_t holds T_w_c translations, the camera centres; gt_t and odo_t are
+    # T_c_w translations with R = I, whose centres are −t.
+    err_node = float(np.linalg.norm(lc.kf_t[i0:LONG_KF].cpu().numpy() + gt_t[sel],
+                                    axis=-1).mean())
+    drift_t = float(torch.linalg.vector_norm(lc.T_map_odom.t))
+    by_route = {}
+    for name, cs in pgo.items():
+        for c in cs:
+            by_route.setdefault((name, c["n_pad"]), []).append(c)
+    print(f"long run: {lc.count} keyframes in {wall:.1f} s, store {lc.bow_db.shape[0]} rows, "
+          f"vocabulary next refresh at {lc._next_vocab_refresh}, {len(lc.closures)} closures "
+          f"(widest span {max(spans, default=0)}), loop window [{i0}, {j1}] = {j1 - i0 + 1} "
+          f"keyframes; node error {err_node:.4f} m against odometry {err_odo:.4f} m; "
+          f"|T_map_odom.t| {drift_t:.4f} m [{SMI}]")
+    print("long run PGO, synced ms per call by route and n_pad (calls, LM iterations a call): "
+          + ", ".join(f"{r} {n}: {statistics.mean(c['ms'] for c in cs):.1f} ({len(cs)}"
+                      + (f", {statistics.mean(c['iterations'] for c in cs):.1f}" if r == "banded"
+                         else "") + ")"
+                      for (r, n), cs in sorted(by_route.items()))
+          + f"; banded calls {len(pgo['banded'])} [{SMI}]")
+    print(f"long run stages, synced ms per call: "
+          + ", ".join(f"{k} {v / timer.calls[k]:.1f} x{timer.calls[k]}"
+                      for k, v in timer.ms.items()) + f"; launches {launches}")
+    ok = (lc.count == LONG_KF and lc.bow_db.shape[0] >= 2048 and lc._next_vocab_refresh > 1024
+          and lc._in_run_vocab and len(lc.closures) >= 3 and j1 - i0 + 1 > 256
+          and max(spans) >= 2 * LONG_LEG - 60 and err_node < 0.2 * err_odo and drift_t > 0.5)
+    if not ok:
+        fail("long run: the assertions of tests/test_longrun.py do not hold")
+    if not pgo["banded"]:
+        fail("long run: no PGO took the banded solver")
+    for name in ("fastblur", "sweep", "bowassign", "hamming", "gather"):
+        if launches[name] < 1:
+            fail(f"long run: {name} never launched")
+
+    # The last banded PGO twice more, and its host syncs per LM iteration.
+    from flvis_tpu_torch.loop import pose_graph
+
+    last = pgo["banded"][-1]
+    graph, fixed, kw = last["args"]
+    ref, ref_cost = last["out"]
+    again = [pose_graph.optimize_banded(graph, fixed, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(g.node_q, ref.node_q) and torch.equal(g.node_t, ref.node_t)
+               and torch.equal(c, ref_cost) for g, c in again)
+    n_it = count_thomas(timer)
+    syncs = host_syncs(lambda: pose_graph.optimize_banded(graph, fixed, **kw))
+    timer.restore()
+    n_it = n_it[0]
+    print(f"banded PGO repeats: the long run's last graph (n_pad {graph.num_nodes}, "
+          f"{int(graph.node_valid.sum())} nodes, {int(graph.edge_valid.sum())} edges) optimised "
+          f"twice more: {'bit-equal' if same else 'DIFFERENT'}; one call: {syncs} host syncs over "
+          f"{n_it} LM iterations ({syncs / max(n_it, 1):.2f} an iteration, the assembly plans' "
+          f"reads included) [{SMI}]")
+    if not same:
+        fail("the banded PGO does not repeat bit for bit on the card")
+    check_banded_solver(device)
+    return {"launches": launches, "banded_calls": len(pgo["banded"])}
+
+
+# ---------------------------------------------------------------------------
+# Phase e: SlamSystem in RGB-D mode (the reference's VI_TYPE_D435I_DEPTH).
+
+def rgbd_system_config(cfg, scfg, device):
+    """The bench's system configuration in depth mode and its RGB-D camera
+    (baseline 0, depth_factor 1000: Z16 millimetres)."""
+    import dataclasses
+
+    from flvis_tpu_torch.geometry import camera
+
+    cfg = cfg.replace(frontend=dataclasses.replace(cfg.frontend, depth_mode=True))
+    cam = camera.make(scfg.fx, scfg.fy, scfg.cx, scfg.cy, 0.0, depth_factor=1000.0,
+                      width=scfg.width, height=scfg.height, device=device)
+    return cfg, cam
+
+
+RGBD_SLICE = (0, 16, 24, N_FRAMES)           # capture chunk, profiled chunk, timed chunk
+RGBD_VIO = (0, 64, 128, 136, 192, LOOP_FRAMES)
+
+
+def rgbd_chunks(slam, label, bounds, step, profiled: int):
+    """Drive step(a, c) over the chunks of `bounds`, chunk `profiled` under
+    device_window; returns (outs, the last chunk's frames/s, the replays'
+    launches in the profiled chunk)."""
+    outs = []
+    for k, (a, c) in enumerate(zip(bounds[:-1], bounds[1:])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if k == profiled:
+            c0 = read_counts()
+            _, _, _, _, names = device_window(lambda: outs.append(step(a, c)))
+            replayed = replay_launches(names, c0)
+            continue
+        outs.append(step(a, c))
+        torch.cuda.synchronize()
+        fps = (c - a) / (time.perf_counter() - t0)
+    return outs, fps, replayed
+
+
+def rgbd_launch_checks(label, slam, counted, replayed, names) -> dict:
+    """Each kernel of `names` launched on the path (the captured step's
+    in-graph kernels in the profiled replays), and sweep never."""
+    captured = bool(slam._captured)
+    launches = path_launches(counted, replayed, captured)
+    print(launch_line(label, counted, replayed, captured, "of the profiled chunk"))
+    for k in names:
+        if launches[k] < 1:
+            fail(f"{label}: {k} never launched")
+    if launches["sweep"]:
+        fail(f"{label}: sweep launched {launches['sweep']} times in depth mode")
+    return launches
+
+
+def rgbd_systems(cfg, scfg, device, eager: bool):
+    """Phase e's two systems in depth mode — the slice's (process_frames)
+    and the VIO + loop one's — on their inputs: (a)'s 64-frame orbit and
+    (b)'s 256-frame out-and-back, each image with its Z16 depth image.
+    Captured, both steps are captured here, before the process's first
+    trace (see phase_de); eager, both step through use_eager_chunks."""
+    from flvis_tpu_torch.geometry import se3
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = rgbd_system_config(cfg, scfg, device)
+    poses, imgs0, _, depth = orbit_frames(scfg)
+    sl_in = (poses, imgs0, depth)
+    vio_in = loop_sequence(scfg, depth=True)
+    sl = SlamSystem(cfg, cam, device=device, seed=0)
+    vio = SlamSystem(cfg, cam, device=device, seed=0, T_i_c=se3.identity(device=device),
+                     use_imu=True, use_loop=True)
+    for slam, kind, label, (_, imgs0, depth) in ((sl, "stereo", "rgbd slice", sl_in),
+                                                 (vio, "vio", "rgbd vio+loop", vio_in[:3])):
+        if eager:
+            use_eager_chunks(slam)
+        else:
+            capture_first(slam, kind, label, frame_inputs(device, imgs0, depth, kind))
+    return (sl, sl_in), (vio, vio_in)
+
+
+def run_rgbd_slice(slam, inputs, eager: bool = False) -> dict:
+    """Phase e, first half: process_frames in depth mode over (a)'s 64-frame
+    orbit, captured or eager (rgbd_systems)."""
+    label = "rgbd slice eager" if eager else "rgbd slice"
+    poses, imgs0, depth = inputs
+    reset_counts()
+    outs, fps, replayed = rgbd_chunks(
+        slam, label, RGBD_SLICE, lambda a, c: slam.process_frames(imgs0[a:c], depth[a:c]), 1)
+    counted = read_counts()
+    status = np.concatenate([o.status for o in outs])
+    C_est = slam.trajectory_cam_centers()
+    C_gt = np.asarray([-R.T @ t for (R, t) in poses])
+    err = ate(C_est, C_gt)
+    bound_m = 0.02 * 0.02 * N_FRAMES + 0.01        # tests/test_tracker.py:97
+    print(f"{label}: {N_FRAMES} frames, {len(slam.keyframes)} keyframes, statuses "
+          f"{np.bincount(status)}, ATE {err:.5f} m (bound {bound_m:.5f}); {fps:.2f} frames/s over "
+          f"frames {RGBD_SLICE[2]}..{RGBD_SLICE[3] - 1} [{SMI}]")
+    graph_report(slam, label)
+    launches = rgbd_launch_checks(label, slam, counted, replayed, ("grad_blur", "schur_step"))
+    if not np.all(status[1:] == 1):
+        fail(f"{label} frames not TRACKING: {np.flatnonzero(status != 1).tolist()}")
+    if not (np.isfinite(C_est).all() and err < bound_m):
+        fail(f"{label} ATE {err} over bound {bound_m}")
+    return {"outs": outs, "costs": list(slam.ba_costs), "fps": fps, "launches": launches}
+
+
+def run_rgbd_vio(slam, inputs, eager: bool = False) -> dict:
+    """Phase e, second half: process_frames_vio with use_loop=True in depth
+    mode over (b)'s 256-frame out-and-back, then flush_loop, captured or
+    eager (rgbd_systems)."""
+    label = "rgbd vio+loop eager" if eager else "rgbd vio+loop"
+    poses, imgs0, depth, frame_t, accs, gyros, imuts, path = inputs
+    reset_counts()
+
+    def step(a, c):
+        sl = slice(a, c)
+        return slam.process_frames_vio(imgs0[sl], depth[sl], ts=frame_t[sl], imu_acc=accs[sl],
+                                       imu_gyro=gyros[sl], imu_t=imuts[sl])
+
+    outs, fps, replayed = rgbd_chunks(slam, label, RGBD_VIO, step, 2)
+    slam.flush_loop()
+    torch.cuda.synchronize()
+    counted = read_counts()
+    lc = slam.loop_closer
+    status = np.concatenate([o.status for o in outs])
+    C_gt = np.asarray([-R.T @ t for (R, t) in poses])
+    C_raw, C_cor = slam.trajectory_cam_centers(), slam.trajectory_cam_centers(loop_corrected=True)
+    ate_raw, ate_cor = ate(C_raw, C_gt), ate(C_cor, C_gt)
+    bound_m = 0.02 * path + 0.01                       # tests/test_pipeline.py:434-435
+    closures = [(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures]
+    print(f"{label}: {LOOP_FRAMES} frames, {len(slam.keyframes)} keyframes, statuses "
+          f"{np.bincount(status)}, {len(closures)} closures {closures[:6]}"
+          f"{'...' if len(closures) > 6 else ''}; ATE odometry {ate_raw:.5f} m, loop-corrected "
+          f"{ate_cor:.5f} m (bound {bound_m:.5f}); {fps:.2f} frames/s over frames "
+          f"{RGBD_VIO[4]}..{RGBD_VIO[5] - 1} [{SMI}]")
+    graph_report(slam, label)
+    launches = rgbd_launch_checks(label, slam, counted, replayed,
+                                  ("grad_blur", "schur_step", "imu_chain", "gather", "fastblur",
+                                   "bowassign", "hamming"))
+    if not np.all(status[1:] == 1):
+        fail(f"{label} frames not TRACKING: {np.flatnonzero(status != 1).tolist()}")
+    if not closures:
+        fail(f"{label} accepted no loop closure")
+    if not (np.isfinite(C_cor).all() and ate_raw < bound_m and ate_cor < bound_m):
+        fail(f"{label} ATE {ate_raw} / {ate_cor} over bound {bound_m}")
+    return {"outs": outs, "costs": list(slam.ba_costs), "fps": fps, "launches": launches,
+            "closures": closures, "ate": (ate_raw, ate_cor), "C": C_cor, "C_gt": C_gt,
+            "ts": np.asarray(frame_t), "slam": slam}
+
+
+def check_trajectory_files(r) -> None:
+    """Phase e's trajectory through io/trajectory (TUM and KITTI), read back
+    equal within the files' printed digits, and utils/evaluation.ate_rmse
+    against the phase's own ATE within 1e-6."""
+    import tempfile
+
+    from flvis_tpu_torch.geometry import se3, so3
+    from flvis_tpu_torch.io import trajectory
+    from flvis_tpu_torch.utils import evaluation
+
+    slam, C = r["slam"], r["C"]
+    q_cw = torch.as_tensor(np.stack([q for (_, _, q, _) in slam.trajectory]))
+    t_cw = torch.as_tensor(np.stack([t for (_, _, _, t) in slam.trajectory]))
+    T_wc = se3.inverse(se3.SE3(q_cw, t_cw))
+    poses = np.tile(np.eye(4), (len(C), 1, 1))
+    poses[:, :3, :3] = so3.to_matrix(T_wc.q).numpy()
+    poses[:, :3, 3] = C
+    with tempfile.TemporaryDirectory() as d:
+        trajectory.write_tum(f"{d}/e.tum", r["ts"], C, q_cw.numpy())
+        trajectory.write_kitti(f"{d}/e.kitti", poses)
+        ts, C_back, q_back = trajectory.read_tum(f"{d}/e.tum")
+        P_back = trajectory.read_kitti(f"{d}/e.kitti")
+    d_tum = max(float(np.abs(C_back - C).max()), float(np.abs(q_back - q_cw.numpy()).max()))
+    d_kitti = float(np.abs(P_back - poses).max())
+    ate_e, _ = evaluation.ate_rmse(C, r["C_gt"], align=False)
+    ate_phase = r["ate"][-1] if isinstance(r["ate"], tuple) else r["ate"]
+    print(f"rgbd trajectory files: TUM read back within {d_tum:.2e} (6 decimals), KITTI within "
+          f"{d_kitti:.2e} (7 digits); utils.evaluation.ate_rmse {ate_e:.7f} m against the "
+          f"phase's {ate_phase:.7f} m")
+    if not (d_tum <= 5.1e-7 and d_kitti <= 1e-5 and len(ts) == len(C)
+            and abs(ate_e - ate_phase) < 1e-6):
+        fail("rgbd: the trajectory files or evaluation.ate_rmse disagree with the run")
+
+
+def run_euroc_format(device) -> str:
+    """If cv2 imports: tests/test_pipeline.py:314-368's synthetic
+    EuRoC-format sequence (16 frames, seed 6) through the port's
+    EurocDataset and process_frames_vio (chunks of 8), ATE < 0.02 m.
+    Returns what ran."""
+    import tempfile
+
+    try:
+        import cv2
+    except ImportError as e:
+        return f"cv2 does not import ({e}): the EuRoC-format run was not made"
+    from flvis_tpu_torch.config import BackendConfig, FrontendConfig, SystemConfig
+    from flvis_tpu_torch.io.euroc import EurocDataset
+    from flvis_tpu_torch.io.synthetic import export_euroc_sequence
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+    from flvis_tpu_torch.utils import evaluation
+
+    with tempfile.TemporaryDirectory() as d:
+        export_euroc_sequence(d, num_frames=16, seed=6)
+        ds = EurocDataset(d, device=device)
+        frames = list(ds.frames())
+    cam = ds.camera
+    cfg = SystemConfig(
+        frontend=FrontendConfig(width=cam.width, height=cam.height, num_slots=128,
+                                pyramid_levels=3, per_cell=8, min_distance=12.0, margin=22),
+        backend=BackendConfig(window_size=5, max_landmarks=256, iters1=6, iters2=3))
+    slam = SlamSystem(cfg, cam, device=device, T_i_c=ds.T_i_c, use_imu=True)
+    for c0 in range(0, len(frames), 8):
+        b = frames[c0:c0 + 8]
+        slam.process_frames_vio(np.stack([f.img0 for f in b]), np.stack([f.img1 for f in b]),
+                                ts=np.asarray([f.t for f in b]), imu_acc=[f.imu_acc for f in b],
+                                imu_gyro=[f.imu_gyro for f in b], imu_t=[f.imu_t for f in b])
+    ts = np.asarray([t for (_, t, _, _) in slam.trajectory])
+    ia, ib = evaluation.associate(ts, ds.gt_t)
+    rmse, _ = evaluation.ate_rmse(slam.trajectory_cam_centers()[ia], ds.gt_pos[ib])
+    msg = (f"cv2 {cv2.__version__} imports and decodes PNG: the EuRoC-format sequence (16 "
+           f"frames, {cam.width}x{cam.height}) through EurocDataset and process_frames_vio, ATE "
+           f"{rmse:.5f} m over {len(ia)} poses (bound 0.02)")
+    if not (len(ia) == len(frames) and rmse < 0.02):
+        fail(f"euroc-format run: {msg}")
+    return msg
+
+
+def run_rgbd(cfg, scfg, device) -> dict:
+    """Phase e: the RGB-D slice and VIO + loop runs, each captured then
+    eager on the same frames and draws and compared bit for bit (closures
+    and ATE too), the trajectory files, and the EuRoC-format run."""
+    (sl, sl_in), (vio, vio_in) = rgbd_systems(cfg, scfg, device, eager=False)
+    sl_r, vio_r = run_rgbd_slice(sl, sl_in), run_rgbd_vio(vio, vio_in)
+    (sl, sl_in), (vio, vio_in) = rgbd_systems(cfg, scfg, device, eager=True)
+    sl_e, vio_e = run_rgbd_slice(sl, sl_in, eager=True), run_rgbd_vio(vio, vio_in, eager=True)
+    compare_runs("rgbd slice", sl_r, sl_e)
+    compare_runs("rgbd vio+loop", vio_r, vio_e)
+    same = vio_r["closures"] == vio_e["closures"] and vio_r["ate"] == vio_e["ate"]
+    print(f"rgbd vio+loop: captured vs eager closures and ATE "
+          f"{'equal' if same else 'DIFFERENT'}: {len(vio_r['closures'])} / "
+          f"{len(vio_e['closures'])} closures, ATE {vio_r['ate']} / {vio_e['ate']}")
+    if not same:
+        fail("rgbd vio+loop: the captured and the eager run closed other loops or another ATE")
+    print(f"phase e captured vs eager, same call: frames/s slice {sl_r['fps']:.2f} vs "
+          f"{sl_e['fps']:.2f}, vio+loop {vio_r['fps']:.2f} vs {vio_e['fps']:.2f} (the last "
+          f"chunk of each) [{SMI}]")
+    check_trajectory_files(vio_r)
+    print(f"phase e EuRoC format: {run_euroc_format(device)}")
+    return {k: vio_r["launches"][k] + sl_r["launches"][k] for k in vio_r["launches"]}
+
+
+def phase_de() -> int:
+    """--phase-de: phases e then d in a process of their own, e's two steps
+    captured before the process's first trace (as phase c's: see
+    phase_c); the last line of output is a JSON object of their
+    launches."""
+    from flvis_tpu_torch.ops.kernels import _build
+
+    global SMI
+    SMI = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    device = torch.device("cuda", 0)
+    _build.load_library()
+    cfg, scfg = system_config()
+    t0 = time.perf_counter()
+    e = run_rgbd(cfg, scfg, device)
+    print(f"phase e, RGB-D, captured and eager: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d = run_long(device)
+    print(f"phase d, the long run and the banded PGO: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"e": e, "d": d}))
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--phase-of"] and len(args) == 3 and args[2] in ("b", "c"):
         return run_phase_of(args[1], args[2])
     if args == ["--phase-c"]:
         return phase_c()
+    if args == ["--phase-de"]:
+        return phase_de()
     if args and not (args[:1] == ["--parent"] and len(args) == 2 or args == ["--mma-rates"]):
-        print("usage: python3 chip_smoke.py [--parent DIR | --mma-rates]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--parent DIR | --mma-rates | --phase-c | --phase-de]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA GPU",
@@ -2241,9 +2937,15 @@ def main() -> int:
         return 2
     if args == ["--mma-rates"]:
         return mma_rates()
+    import os
+    import tempfile
+
     from flvis_tpu_torch.ops import orb
     from flvis_tpu_torch.ops.kernels import _build
 
+    # Removed when the process ends, however it ends.
+    renders = tempfile.TemporaryDirectory(prefix="chip_smoke_renders_")
+    os.environ[RENDERS] = renders.name
     device = torch.device("cuda", 0)
     global SMI
     smi = SMI = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2313,6 +3015,10 @@ def main() -> int:
     ms_r = run_own_process("--phase-c")
     print(f"phase c, multi-sequence, captured and eager (its own process): "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    de = run_own_process("--phase-de")
+    print(f"phases e and d, RGB-D and the long run (their own process): "
+          f"{time.perf_counter() - t0:.1f} s")
     for ph, r, e in (("a", slice_r, slice_e), ("b", head_r, head_e)):
         g = next(iter(r["graph"].values()))
         print(f"phase {ph} captured vs eager, same call: frames/s {r['fps']:.2f} vs "
@@ -2335,7 +3041,11 @@ def main() -> int:
                        "bowassign": ms_launches, "gather": ms_launches}.get(e["name"],
                                                                             head_launches)
         e["launches"] = path_counts[e["name"]]
+    print(f"launches in phase e (RGB-D, captured: its wrappers and profiled replays): "
+          f"{de['e']}; in phase d (the long run): {de['d']['launches']}, "
+          f"{de['d']['banded_calls']} banded PGO calls")
     print(json.dumps({"kernels": table}))
+    print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s in all")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -60,3 +60,15 @@ def to_torch(device):
         return torch.from_numpy(np.array(a)).to(device)
 
     return convert
+
+
+def to_pose_graph(graph, device):
+    """A pose graph of either package, or a dict of its node and edge
+    arrays, → the port's loop.pose_graph.PoseGraph on `device`: poses and
+    edge weights float32, edge indices int64, masks bool."""
+    from .loop.pose_graph import PoseGraph
+
+    d = graph if isinstance(graph, dict) else to_numpy(graph)
+    kinds = {"edge_i": np.int64, "edge_j": np.int64, "node_valid": bool, "edge_valid": bool}
+    return PoseGraph(**{f.name: torch.from_numpy(np.array(d[f.name], kinds.get(f.name, np.float32)))
+                        .to(device) for f in dataclasses.fields(PoseGraph)})

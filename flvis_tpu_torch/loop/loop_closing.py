@@ -2,15 +2,17 @@
 optimisation and the map→odom drift (port of flvis_tpu/loop/loop_closing.py).
 
 Per keyframe: ORB detect + compute (fastblur kernel) and keypoint depth
-from the half-res plane sweep (sweep kernel) are written into the
-device-resident keyframe store; once a vocabulary exists, the keyframe's
-tf-idf BoW row (bowassign kernel) goes into the database.  The candidate
+from the half-res plane sweep (sweep kernel) — or, in depth mode, from the
+aligned depth image — are written into the device-resident keyframe
+store; once a vocabulary exists, the keyframe's tf-idf BoW row (bowassign
+kernel) goes into the database.  The candidate
 gate scores a query against the database (BoW similarity in the temporal
 window, adaptive minimum score, neighbour consistency), verification runs
 on the survivor (mutual-ratio ORB matching through the hamming kernel, PnP
 RANSAC, translation/rotation accept gates) and `optimize_graph` runs the
-windowed pose graph and re-bases the keyframes after the window onto the
-new drift.
+windowed pose graph — dense up to 256 padded nodes, banded past that, as
+the reference switches — and re-bases the keyframes after the window onto
+the new drift.
 
 Two ways in, with the reference's semantics:
   - stepwise: `add_keyframe` + `detect_loop`, resolved at once (the
@@ -26,8 +28,8 @@ Two ways in, with the reference's semantics:
     programs see them.
 
 Differences from the reference, by design:
-  - Not ported: the mesh-sharded database, the loop/PGO devices, debug
-    dumps and RGB-D depth lookup.
+  - Not ported: the mesh-sharded database, the loop/PGO devices and the
+    debug dumps.
   - Ingest without shape padding: the reference pads its ingest to blocks
     of {32, 8, 4} keyframes to keep XLA shapes stable, then drops the
     padded rows; the port ingests and transforms only the real rows, with
@@ -56,28 +58,33 @@ from ..config import LoopConfig
 from ..geometry import camera as cam_m, se3 as se3m, so3
 from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
-from ..ops import orb, pnp, stereo
+from ..ops import image as imops, orb, pnp, stereo
 from ..ops.kernels import hamming
 from . import bow, pose_graph
 
-# Loop windows up to this many (padded) nodes take the dense PGO solve; the
-# reference switches to its banded solver above it (loop_closing.py:1108).
-_DENSE_MAX_NODES = 256
+# Loop windows up to this many (padded) nodes take the dense PGO solve, and
+# wider ones the banded solver, as the reference switches (loop_closing.py:1108).
+_BANDED_THRESHOLD = 256
 # Candidate pairs verified together (the reference's 8-wide
 # _verify_device_batch buckets, loop_closing.py:964-985).
 VERIFY_BUCKET = 8
 
 
-def _ingest(img_l, img_r, cam: StereoCamera, num_features: int):
-    """ORB features of the left image plus their depth from the stereo
-    sweep.  Returns (uv, desc, kp_valid, p_c, pc_valid)."""
+def _ingest(img_l, img_r, cam: StereoCamera, num_features: int, depth_mode: bool = False):
+    """ORB features of the left image plus their depth: from the stereo
+    sweep, or in depth mode from img_r as an aligned depth image (raw units,
+    / cam.depth_factor).  Returns (uv, desc, kp_valid, p_c, pc_valid)."""
     img_l = img_l.to(torch.float32)
-    img_r = img_r.to(torch.float32)
     uv, desc, kp_valid, _ = orb.detect_and_compute(img_l, num_features=num_features)
-    disp_map, dv = stereo.disparity_sweep(img_l, img_r)
-    disp, d_ok = stereo.keypoint_disparity(disp_map, dv, uv)
-    z = cam.fx * cam.baseline / torch.clamp(disp, min=1e-3)
-    d_ok = d_ok & (z > 0.1) & (z < 100.0)
+    if depth_mode:
+        z = imops.bilinear_sample(img_r, uv) / cam.depth_factor
+        d_ok = (z > 0.1) & (z < 100.0)
+    else:
+        img_r = img_r.to(torch.float32)
+        disp_map, dv = stereo.disparity_sweep(img_l, img_r)
+        disp, d_ok = stereo.keypoint_disparity(disp_map, dv, uv)
+        z = cam.fx * cam.baseline / torch.clamp(disp, min=1e-3)
+        d_ok = d_ok & (z > 0.1) & (z < 100.0)
     return uv, desc, kp_valid, cam_m.backproject(cam, uv, z), d_ok & kp_valid
 
 
@@ -149,12 +156,16 @@ class _PoseView:
 
 class LoopCloser:
     """Keyframe database + loop detection + pose-graph correction, on one
-    device (default "cuda")."""
+    device (default "cuda").  With depth_mode, the second image of every
+    keyframe is an aligned depth image (RGB-D), not the right stereo
+    image."""
 
     def __init__(self, cfg: LoopConfig, cam: StereoCamera,
-                 vocab: Optional[bow.Vocabulary] = None, device="cuda"):
+                 vocab: Optional[bow.Vocabulary] = None, device="cuda",
+                 depth_mode: bool = False):
         self.cfg = cfg
         self.cam = cam
+        self.depth_mode = depth_mode
         # The verification's PnP inlier threshold, 3 px in normalised units,
         # read from the camera once (not on every bucket).
         self._pnp_thr = 3.0 / float(cam.fx)
@@ -214,7 +225,7 @@ class LoopCloser:
         """ORB + depth of one keyframe into store row k; returns (desc,
         kp_valid)."""
         uv, desc, kp_valid, p_c, pc_valid = _ingest(img_l, img_r, self.cam,
-                                                    self.cfg.num_orb_features)
+                                                    self.cfg.num_orb_features, self.depth_mode)
         self.kf_uv[k] = uv
         self.kf_desc[k] = desc
         self.kf_kp_valid[k] = kp_valid
@@ -524,10 +535,6 @@ class LoopCloser:
             return
         wn = j1 - i0 + 1
         n_pad = max(32, 1 << (wn - 1).bit_length())
-        if n_pad > _DENSE_MAX_NODES:
-            raise NotImplementedError(
-                f"a {wn}-keyframe loop window needs the banded PGO solver "
-                "(pose_graph.optimize_banded), not ported yet: ROADMAP Queue 1 item 9")
         closures = self.closures
         cap = cfg.pgo_max_loop_edges
         if cap > 0 and len(closures) > cap:
@@ -551,7 +558,13 @@ class LoopCloser:
                               n_pad, cfg.seq_edge_successors)
         fixed = torch.zeros(n_pad, dtype=torch.bool, device=self.device)
         fixed[0] = True
-        g2, _ = pose_graph.optimize(g, fixed, iters=min(cfg.pgo_iters, 30))
+        if n_pad > _BANDED_THRESHOLD:
+            # _build_graph puts the n_succ·n_pad sequential edges first: the band.
+            g2, _ = pose_graph.optimize_banded(
+                g, fixed, band_edges=cfg.seq_edge_successors * n_pad,
+                iters=min(cfg.pgo_iters, 20))
+        else:
+            g2, _ = pose_graph.optimize(g, fixed, iters=min(cfg.pgo_iters, 30))
         self._apply_pgo(g2.node_q, g2.node_t, i0, wn, n)
         self._last_pgo_id = j1
 

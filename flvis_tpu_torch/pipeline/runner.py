@@ -296,6 +296,10 @@ class _Captured:
         """The chunk: carry (a state tree, copied in), xs (T, ...) tensors,
         draw(u) writing a frame's draws into u.  Returns (carry (fresh
         tensors), the step's ys stacked over T)."""
+        for dst, x in zip(self.xs, xs):
+            if x.dtype != dst.dtype:
+                raise TypeError(f"{self.step.name} was captured for {dst.dtype} inputs, not "
+                                f"{x.dtype}")
         for dst, src in zip(tree_leaves(self.step.carry), tree_leaves(carry)):
             dst.copy_(src)
         T = xs[0].shape[0]
@@ -335,8 +339,10 @@ def pack_imu_frames(imu_accs, imu_gyros, imu_ts, pad: int = 16):
 
 
 class SlamSystem:
-    """Stereo(+IMU)(+loop) SLAM engine instance for one sequence, on one
-    device (default "cuda")."""
+    """Stereo or RGB-D (+IMU)(+loop) SLAM engine instance for one sequence,
+    on one device (default "cuda").  With cfg.frontend.depth_mode the second
+    image of every frame is an aligned depth image (raw units, divided by
+    cam.depth_factor; float32), in the tracker and the loop node alike."""
 
     def __init__(self, cfg: SystemConfig, cam: StereoCamera, *, device="cuda", seed: int = 0,
                  T_i_c: Optional[SE3] = None, use_imu: bool = False, use_loop: bool = False,
@@ -347,9 +353,6 @@ class SlamSystem:
             if on:
                 raise NotImplementedError(f"SlamSystem({name}=...) is not ported yet: "
                                           f"{_NOT_PORTED[name]}")
-        if cfg.frontend.depth_mode:
-            raise NotImplementedError("SlamSystem runs the stereo path; depth mode is "
-                                      "ported in frontend.tracker only (ROADMAP item 7b)")
         self.cfg = cfg
         self.cam = cam
         self.device = torch.device(device)
@@ -361,7 +364,9 @@ class SlamSystem:
             T_i_c = se3m.identity(device=self.device)
         self.T_i_c = SE3(T_i_c.q.to(self.device), T_i_c.t.to(self.device))
         self.vio_state = vimotion.init_state(cfg.vio, device=self.device)
-        self.loop_closer = LoopCloser(cfg.loop, cam, device=self.device) if use_loop else None
+        self.loop_closer = (LoopCloser(cfg.loop, cam, device=self.device,
+                                       depth_mode=cfg.frontend.depth_mode)
+                            if use_loop else None)
         self.loop_stage = LoopStage(self.loop_closer) if use_loop else None
         self._null = window_ba.null_correction(cfg.backend, device=self.device)
         self.pending_corr = self._null  # always a Correction; valid=False applies nothing
@@ -372,7 +377,7 @@ class SlamSystem:
         self.n_valid_corrections = 0    # keyframes whose BA produced a valid Correction
         self.pipelined = pipelined
         self._inflight = None           # the chunk whose end is still to run
-        self._captured = {}             # "stereo" / "vio" -> _Captured (CUDA devices)
+        self._captured = {}             # ("stereo" | "vio", input dtypes) -> _Captured (CUDA)
         # The schur kernel's last-block ticket of this system's captured steps.
         self._ticket = (torch.zeros(1, dtype=torch.int32, device=self.device)
                         if self.device.type == "cuda" else None)
@@ -409,8 +414,8 @@ class SlamSystem:
 
     # -------------------------------------------------------------- entries
     def process_frame(self, img0, img1, t_img: float = 0.0):
-        """One frame (host arrays or tensors, uint8 or float32) at image time
-        t_img; returns the FrameOutput (tensors on the system's device).
+        """One frame (host arrays or tensors, uint8 or float32; in depth mode
+        img1 a float32 depth image) at image time t_img; returns the FrameOutput (tensors on the system's device).
         The stepwise path runs eagerly (its conds read the host)."""
         if self._inflight is not None:
             # Keep the host logs stream-ordered: finish the chunk in flight.
@@ -483,9 +488,12 @@ class SlamSystem:
         return packed, pkts, cap
 
     def _captured_step(self, kind: str, xs):
-        """The system's captured `kind` step, captured now (from the
-        system's state, on a frame of xs's shapes) unless it was before."""
-        cap = self._captured.get(kind)
+        """The system's captured `kind` step for inputs of xs's dtypes,
+        captured now (from the system's state, on a frame of xs's shapes)
+        unless it was before: a graph is never replayed on inputs of another
+        dtype (uint8 stereo pairs, a float32 depth image)."""
+        key = (kind,) + tuple(x.dtype for x in xs)
+        cap = self._captured.get(key)
         if cap is None:
             vio = kind == "vio"
             step = self._vio_step if vio else self._stereo_step
@@ -498,7 +506,7 @@ class SlamSystem:
                 return c, _frame_row(ys)
 
             u = torch.zeros(tracker.draws_size(fcfg), dtype=torch.float32, device=self.device)
-            cap = self._captured[kind] = _Captured(
+            cap = self._captured[key] = _Captured(
                 fn, self._carry(vio), tuple(x[0] for x in xs), u, f"the {kind} frame step")
         return cap
 

@@ -73,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import time
 import weakref
 
@@ -425,6 +426,14 @@ class CapturedStep:
         torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
 
+        # A dead captured step held by a reference cycle (its fn closes over
+        # its system) releases its graph and memory pool when the collector
+        # frees it; in the middle of a capture that aborts the process.  So
+        # the cycles are collected now, and the collector is off until the
+        # capture ends.
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.body_pool = torch.cuda.MemPool()
         streams = _streams(self.device, lib, self.STREAMS * (1 + branches))
@@ -442,6 +451,8 @@ class CapturedStep:
                                f"{last.last_op}: {e}") from e
         finally:
             _MODE.capture = prev
+            if gc_on:
+                gc.enable()
         census = (ctypes.c_int * len(NODE_KINDS))()
         _Capture._check("the graph census",
                         lib.flvis_graph_census(self.graph.raw_cuda_graph(), census))

@@ -1211,7 +1211,7 @@ def test_captured_step_matches_eager(dev, kind):
     assert slam.ba_costs == costs and len(costs) >= 2
     status = np.concatenate([o.status for o in got])
     assert status[6] == 2 and status[7] == 1                   # FAIL, then re-init
-    assert set(slam._captured) == {kind}
+    assert [key[0] for key in slam._captured] == [kind]
 
 
 def test_captured_replays_no_host_sync(dev):
@@ -1234,7 +1234,8 @@ def test_captured_replays_no_host_sync(dev):
         packed, pkts, cap = slam._run_chunk("vio", tuple(xs))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert cap is slam._captured["vio"] and cap.step.replays == len(imgs0)
+    assert cap is slam._captured[("vio",) + tuple(x.dtype for x in xs)]
+    assert cap.step.replays == len(imgs0)
     assert torch.isfinite(packed).all()
 
 
@@ -1332,7 +1333,7 @@ def test_captured_long_lm_loops_match_eager(dev):
     want, costs = _eager_chunks(SlamSystem(cfg, cam, device=dev, seed=0), "stereo", frames, 6)
     _assert_same_outputs(got, want)
     assert slam.ba_costs == costs and len(costs) >= 2
-    st = slam._captured["stereo"].step
+    st = next(iter(slam._captured.values())).step
     loops = [x for x in st.sites if x["kind"] == "while"]
     assert [x["name"] for x in loops] == ["lm_loop", "lm_loop"] and len(st.sites) <= 8
     iterations, entries = st.taken_by_name()["lm_loop"]
@@ -1568,3 +1569,159 @@ def test_captured_step_keeps_what_it_closes_over(dev):
     cap.replay()
     torch.cuda.synchronize()
     assert torch.equal(cap.carry[0], torch.full((1024,), 3.0, device=dev)) and len(junk) == 64
+
+
+def _banded_graph(dev, K=1024, n=1000, n_succ=5, loop_pad=8, seed=0):
+    """A drifted ring shaped like loop_closing._build_graph's output: the
+    n_succ·K band edges first, then 8 loop edges with true relative poses
+    (tests/test_pose_graph.py:_reference_style_graph at K nodes)."""
+    from flvis_tpu_torch.geometry import se3, so3
+    from flvis_tpu_torch.loop import pose_graph
+
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 2 * np.pi, n)
+    ts = np.zeros((K, 3), np.float32)
+    ts[:n] = 20.0 * np.stack([np.cos(th), np.sin(th), 0 * th], -1)
+    f = dict(dtype=torch.float32, device=dev)
+    gt = se3.SE3(so3.identity((K,), device=dev), torch.as_tensor(ts, **f))
+    a = torch.arange(K, device=dev)
+    ei, ej = [], []
+    for s in range(1, n_succ + 1):
+        ei.append(a)
+        ej.append(torch.clamp(a + s, max=K - 1))
+    loops = [(int(i), int(i) + int(g)) for i, g in
+             zip(rng.integers(0, n // 2, loop_pad), rng.integers(n // 3, n // 2, loop_pad))]
+    ei.append(torch.as_tensor([i for i, _ in loops], device=dev))
+    ej.append(torch.as_tensor([j for _, j in loops], device=dev))
+    ei, ej = torch.cat(ei), torch.cat(ej)
+    rel = se3.compose(se3.inverse(se3.SE3(gt.q[ei], gt.t[ei])), se3.SE3(gt.q[ej], gt.t[ej]))
+    valid = torch.cat([(a + s < n) for s in range(1, n_succ + 1)]
+                      + [torch.ones(loop_pad, dtype=torch.bool, device=dev)])
+    w = torch.cat([torch.full((K,), 1.0 / s, **f) for s in range(1, n_succ + 1)]
+                  + [torch.full((loop_pad,), 5.0, **f)])
+    noisy = ts + rng.normal(0, 0.08, ts.shape).astype(np.float32) * (np.arange(K) < n)[:, None]
+    g = pose_graph.PoseGraph(node_q=gt.q, node_t=torch.as_tensor(noisy, **f),
+                             node_valid=a < n, edge_i=ei, edge_j=ej, edge_q=rel.q,
+                             edge_t=rel.t, edge_valid=valid, edge_weight=w)
+    return g, ts, n_succ * K
+
+
+def test_banded_pgo_repeats_bit_for_bit(dev):
+    """optimize_banded at 1,024 nodes with 8 loop edges gives the same bits
+    twice (fixed-order assembly of D, U, b and U_w; no float atomics), and
+    solves the graph: its edges are exact, so the optimum is the truth
+    moved by the held node 0's noise (the gauge it fixes), reached within
+    1 mm from nodes up to 0.3 m off."""
+    from flvis_tpu_torch.loop import pose_graph
+
+    g, ts, band_edges = _banded_graph(dev)
+    fixed = torch.zeros(1024, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    a, ca = pose_graph.optimize_banded(g, fixed, band_edges=band_edges, iters=20)
+    b, cb = pose_graph.optimize_banded(g, fixed, band_edges=band_edges, iters=20)
+    torch.cuda.synchronize()
+    assert torch.equal(a.node_q, b.node_q) and torch.equal(a.node_t, b.node_t)
+    assert torch.equal(ca, cb) and bool(torch.isfinite(a.node_t).all())
+    gauge = g.node_t[0].cpu().numpy() - ts[0]
+    err0 = np.linalg.norm(g.node_t[:1000].cpu().numpy() - ts[:1000], axis=-1).max()
+    err1 = np.linalg.norm(a.node_t[:1000].cpu().numpy() - ts[:1000] - gauge, axis=-1).max()
+    assert err0 > 0.2 and err1 < 1e-3, (err1, err0)
+
+
+def _entry_rgbd_frames(n=12):
+    """n RGB-D frames of the entry scene's out-and-back pan: the uint8
+    image, a float32 Z16 depth image (mm) and the IMU packets."""
+    from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig
+
+    imgs0, _, ts, imu = _entry_frames(n, blank=())
+    scfg = SceneConfig(width=256, height=192, fx=200.0, fy=200.0, cx=128.0, cy=96.0,
+                       baseline=0.12)
+    xs = list(np.linspace(0, 0.3, n // 2)) + list(np.linspace(0.3, 0.02, n - n // 2))
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=11)
+    depth = np.stack([np.round(1000.0 * scene.render(np.eye(3), -np.asarray([x, 0.0, 0.0]))[2])
+                      for x in xs]).astype(np.float32)
+    return imgs0, depth, ts, imu
+
+
+def _rgbd_system(dev, **kw):
+    from flvis_tpu_torch.geometry import camera
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, _ = _entry_system(dev, depth_mode=True)
+    cam = camera.make(200.0, 200.0, 128.0, 96.0, 0.0, depth_factor=1000.0, width=256,
+                      height=192, device=dev)
+    return SlamSystem(cfg, cam, device=dev, seed=0, **kw)
+
+
+@pytest.mark.parametrize("kind", ["stereo", "vio"])
+def test_rgbd_captured_step_matches_eager(dev, kind):
+    """SlamSystem in depth mode (a float32 depth image as the second input):
+    the captured step, picked by its inputs' dtypes, against the eager
+    composition on the same draws, bit for bit."""
+    frames = _entry_rgbd_frames()
+    slam = _rgbd_system(dev, use_imu=kind == "vio")
+    got = _chunks(slam, kind, frames, 6)
+    want, costs = _eager_chunks(_rgbd_system(dev, use_imu=kind == "vio"), kind, frames, 6)
+    _assert_same_outputs(got, want)
+    assert slam.ba_costs == costs and len(costs) >= 2
+    assert np.all(np.concatenate([o.status for o in got])[1:] == 1)
+    (key,) = slam._captured
+    assert key[0] == kind and key[2] == torch.float32
+    with pytest.raises(TypeError, match="captured for torch.float32 inputs"):
+        slam._captured[key].run(None, (torch.zeros((1, 192, 256), dtype=torch.uint8,
+                                                   device=dev),) * 2, None)
+
+
+def test_depth_system_never_launches_sweep(dev):
+    """A depth-mode SlamSystem with the loop node ingests its keyframes
+    through ORB (fastblur) and the depth image: sweep never launches."""
+    from flvis_tpu_torch.ops.kernels import fastblur, sweep
+
+    imgs0, depth, ts, imu = _entry_rgbd_frames()
+    slam = _rgbd_system(dev, use_loop=True)
+    s0, f0 = sweep.sweep_maps_kernel.launches, fastblur.fast_score_nms_blur_kernel.launches
+    for a in range(0, 12, 6):
+        slam.process_frames(imgs0[a:a + 6], depth[a:a + 6], ts[a:a + 6])
+    slam.flush_loop()
+    torch.cuda.synchronize()
+    assert slam.loop_closer.count == len(slam.keyframes) >= 2
+    assert fastblur.fast_score_nms_blur_kernel.launches - f0 >= slam.loop_closer.count
+    assert sweep.sweep_maps_kernel.launches == s0
+
+
+def test_dead_captured_system_is_not_collected_mid_capture(dev, monkeypatch):
+    """A captured SlamSystem dropped by its caller lives on in a reference
+    cycle (its step's function closes over it) until the collector frees
+    it, which releases its graph and memory pool: the next capture collects
+    such cycles before it starts and keeps the collector off while it
+    captures (a release mid-capture aborted the card tests' process)."""
+    import gc
+    import weakref
+
+    from flvis_tpu_torch.frontend import tracker
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+    from flvis_tpu_torch.utils import control
+
+    cfg, cam = _entry_system(dev)
+    imgs0, imgs1, ts, _ = _entry_frames(n=4, blank=())
+    a = SlamSystem(cfg, cam, device=dev, seed=0)
+    a.process_frames(imgs0, imgs1, ts)
+    dead = weakref.ref(next(iter(a._captured.values())).step)
+    del a
+    assert dead() is not None                         # held by its cycle
+    seen = []
+    real = tracker.track_frame
+
+    def track(*args, **kw):
+        if control._MODE.capture is not None:
+            seen.append(gc.isenabled())
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tracker, "track_frame", track)
+    assert gc.isenabled()
+    b = SlamSystem(cfg, cam, device=dev, seed=0)
+    out = b.process_frames(imgs0, imgs1, ts)
+    torch.cuda.synchronize()
+    assert seen == [False] and gc.isenabled()
+    assert dead() is None
+    assert np.all(out.status[1:] == 1)

@@ -9,7 +9,8 @@ PRNGKey(i·7919 + j)).  Tolerances:
     scores within 1e-6 (float32 log and sum order);
   - dense PGO on the injected-drift scenes of tests/test_loop_closing.py:
     node poses within 1e-4 (a float32 LU solve of a 192-unknown system in
-    each framework, a few LM steps);
+    each framework, a few LM steps); the banded PGO of windows past 256
+    keyframes within the same 1e-4;
   - the loop_run scene through both LoopClosers: the same accepted (i, j)
     pairs, inlier counts within ±1 (a few near-tie descriptor bits may
     flip, tests/test_torch_orb_stereo.py), T_map_odom within 1e-3, and the
@@ -125,10 +126,33 @@ def test_dense_pgo_matches(n, loops):
     assert torch.equal(tl.kf_t[:loops[0][0]], pre)       # before the window: untouched
 
 
-def test_banded_window_not_ported_raises():
-    _, tl = _inject(300, [(5, 290)])
-    with pytest.raises(NotImplementedError, match="optimize_banded"):
+@pytest.mark.parametrize("n,loops", [(300, [(5, 290)]),
+                                     (480, [(5, 470), (40, 440), (200, 400)])])
+def test_banded_pgo_matches(n, loops):
+    """Loop windows past 256 keyframes (both pad to 512 nodes) take the
+    banded solver in both packages, at min(pgo_iters, 20) LM steps."""
+    jl, tl = _inject(n, loops)
+    pre = tl.kf_t[:loops[0][0]].clone()
+    calls = []
+    real = tlc.pose_graph.optimize_banded
+
+    def banded(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tlc.pose_graph, "optimize_banded", banded)
+    try:
+        jl.optimize_graph()
         tl.optimize_graph()
+    finally:
+        mp.undo()
+    assert calls == [dict(band_edges=tl.cfg.seq_edge_successors * 512, iters=20)]
+    np.testing.assert_allclose(tl.kf_t.numpy(), np.asarray(jl.kf_t), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(tl.kf_q.numpy(), np.asarray(jl.kf_q), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(tl.T_map_odom.t.numpy(), np.asarray(jl.T_map_odom.t),
+                               atol=1e-4)
+    assert torch.equal(tl.kf_t[:loops[0][0]], pre)       # before the window: untouched
 
 
 def _out_and_back(n):

@@ -70,7 +70,11 @@ def test_closure_reaches_the_shared_modules():
     files = {str(f.relative_to(ROOT)) for f in _closure()}
     assert not [f for f in files if f.startswith("flvis_tpu/")], sorted(files)
     for own in ("flvis_tpu_torch/config.py", "flvis_tpu_torch/io/synthetic.py",
-                "flvis_tpu_torch/ops/kernels/schur.py", "chip_smoke.py"):
+                "flvis_tpu_torch/ops/kernels/schur.py", "chip_smoke.py",
+                "flvis_tpu_torch/io/trajectory.py", "flvis_tpu_torch/io/rosbag.py",
+                "flvis_tpu_torch/io/euroc.py", "flvis_tpu_torch/io/kitti.py",
+                "flvis_tpu_torch/utils/evaluation.py", "flvis_tpu_torch/utils/timing.py",
+                "flvis_tpu_torch/utils/profiling.py", "flvis_tpu_torch/run_dataset.py"):
         assert own in files, own
 
 
