@@ -4,6 +4,7 @@
     python3 chip_smoke.py --mma-rates
     python3 chip_smoke.py --phase-c
     python3 chip_smoke.py --phase-de
+    python3 chip_smoke.py --phase-f
 
 Builds the port's CUDA kernels from flvis_tpu_torch/csrc/, holds each
 kernel against its plain PyTorch version at the shapes the main paths give
@@ -58,9 +59,22 @@ paths of the port at the EuRoC-sized bench configuration:
      past 256 keyframes: the banded PGO, drift corrected); PGO ms a call
      by route and n_pad, the last banded PGO twice more bit-equal, host
      syncs per banded LM iteration, banded against dense at K = 64 and the
-     cold 2,048-node ring at 20 against 100 iterations.  Phases e and d
-     run in a process of their own (`--phase-de`), e's steps captured
-     before its first trace.
+     cold 2,048-node ring at 20 against 100 iterations;
+  f. the single-device surfaces — (b)'s system with output_sparse_map and
+     a loop node dumping its debug surface: run A straight through the
+     256 frames, run B over frames 0..127 and saved (utils/checkpoint),
+     B's file loaded into a fresh captured system (captured before the
+     load) and a fresh eager one, each over frames 128..255: resumed
+     captured = resumed eager bit for bit (outputs, BA costs, closures,
+     loop poses, sparse cloud, dump files), within 5e-3 m of run A, ≥ 1
+     closure, (b)'s ATE bound; run A's dump files counted against its
+     loop node's ingests, PGO solves and closures, its sparse cloud
+     repeated and round-tripped through a PLY; LoopCloser(pgo_device=
+     "cpu") on the card over (d)'s first 384 keyframes (dense and banded
+     PGO) against (d)'s all-card run at that count; the native KITTI
+     loader's build, its frames against cv2's and a run_dataset kitti run.
+     Phases e, d and f run in a process of their own (`--phase-de`), e's
+     steps captured before its first trace; `--phase-f` runs f alone.
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after (a captured step is captured before that, its warm-up's
@@ -2568,6 +2582,7 @@ def run_long(device) -> dict:
     pgo = record_pgo_routes(timer)
     timer.wrap(lc, "add_keyframes_batch", "loop ingest")
     timer.wrap(lc, "detect_loops_batch", "loop gate + verify")
+    snap = None
     reset_counts()
     t0 = time.perf_counter()
     for c0 in range(0, LONG_KF, LONG_CHUNK):
@@ -2578,6 +2593,12 @@ def run_long(device) -> dict:
         ks = lc.add_keyframes_batch(il, ir, list(range(len(il))), q, odo_t[ks_range], ks_range)
         if lc.detect_loops_batch(ks):
             lc.optimize_graph()
+        if lc.count == PGO_CPU_KF:
+            # Phase f's all-card reference for pgo_device="cpu".
+            kf_t = lc.kf_t[:PGO_CPU_KF].cpu()
+            snap = {"closures": [(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures],
+                    "kf_t": kf_t, "kf_q": lc.kf_q[:PGO_CPU_KF].cpu(),
+                    "node_err": node_error(kf_t, gt_t), "pgo": _pgo_ms(pgo)}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -2644,7 +2665,7 @@ def run_long(device) -> dict:
     if not same:
         fail("the banded PGO does not repeat bit for bit on the card")
     check_banded_solver(device)
-    return {"launches": launches, "banded_calls": len(pgo["banded"])}
+    return {"launches": launches, "banded_calls": len(pgo["banded"]), "snap": snap}
 
 
 # ---------------------------------------------------------------------------
@@ -2896,11 +2917,408 @@ def run_rgbd(cfg, scfg, device) -> dict:
     return {k: vio_r["launches"][k] + sl_r["launches"][k] for k in vio_r["launches"]}
 
 
-def phase_de() -> int:
-    """--phase-de: phases e then d in a process of their own, e's two steps
-    captured before the process's first trace (as phase c's: see
+# ---------------------------------------------------------------------------
+# Phase f: the single-device surfaces — checkpoint and resume, the sparse map,
+# the loop node's debug dumps and pgo_device, the native KITTI loader.
+
+RESUME_AT = LOOP_FRAMES // 2            # run B's checkpoint: after frames 0..127
+PGO_CPU_KF = 384                        # (d)'s first keyframes, for pgo_device="cpu"
+KITTI_FRAMES = 30
+CENTRE_TOL = 5e-3                       # tests/test_checkpoint.py:77-80
+PGO_CPU_TOL = 1e-3                      # node poses, CPU vs card PGO of one graph (float32)
+
+
+def f_system(cfg, cam, device, dump_dir, eager: bool = False):
+    """(b)'s system (stereo + IMU + loop) with output_sparse_map and a loop
+    node that dumps its debug surface into dump_dir; with `eager`, its
+    chunks through the eager composition.  Returns (system, the accepted
+    closures' (i, j, n_match, n_inl) as they come, the loop node's record
+    of ingests and PGO solves)."""
+    from flvis_tpu_torch.geometry import se3
+    from flvis_tpu_torch.loop.loop_closing import LoopCloser
+    from flvis_tpu_torch.pipeline.runner import LoopStage, SlamSystem
+
+    slam = SlamSystem(cfg, cam, device=device, seed=0, T_i_c=se3.identity(device=device),
+                      use_imu=True, use_loop=True, output_sparse_map=True)
+    lc = slam.loop_closer = LoopCloser(cfg.loop, cam, device=device, dump_dir=str(dump_dir))
+    slam.loop_stage = LoopStage(lc)
+    if eager:
+        use_eager_chunks(slam)
+    closures, record = [], {"ingests": [], "solves": []}
+    accept, ingest, apply_pgo = lc._verify_accept, lc.add_keyframes_batch, lc._apply_pgo
+
+    def accepted(i, j, row):
+        out = accept(i, j, row)
+        if out is not None:
+            closures.append((i, j, int(row[7]), int(row[8])))
+        return out
+
+    def ingested(*a):
+        c0 = lc.count
+        out = ingest(*a)
+        record["ingests"].append((c0, lc.count))
+        return out
+
+    def applied(*a):
+        record["solves"].append(lc.count)
+        return apply_pgo(*a)
+
+    lc._verify_accept, lc.add_keyframes_batch, lc._apply_pgo = accepted, ingested, applied
+    return slam, closures, record
+
+
+def f_frames(slam, seq, a: int, b: int) -> list:
+    """Frames a..b-1 of the loop-event sequence through process_frames_vio
+    in chunks of CHUNK; the host FrameOutputs."""
+    _, imgs0, imgs1, frame_t, accs, gyros, imuts, _ = seq
+    outs = []
+    for c0 in range(a, b, CHUNK):
+        sl = slice(c0, min(c0 + CHUNK, b))
+        outs.append(slam.process_frames_vio(imgs0[sl], imgs1[sl], ts=frame_t[sl],
+                                            imu_acc=accs[sl], imu_gyro=gyros[sl],
+                                            imu_t=imuts[sl]))
+    return outs
+
+
+def dump_arrays(d) -> dict:
+    """{file name: its arrays} of a dump directory: each similarity matrix,
+    each pose graph's arrays, each match image's pixels."""
+    import cv2
+
+    out = {}
+    for p in sorted(Path(d).iterdir()):
+        if p.suffix == ".txt":
+            out[p.name] = [np.loadtxt(p)]
+        elif p.suffix == ".npz":
+            with np.load(p) as z:
+                out[p.name] = [z[k] for k in sorted(z.files)]
+        elif p.suffix == ".png":
+            out[p.name] = [cv2.imread(str(p), cv2.IMREAD_UNCHANGED)]
+    return out
+
+
+def same_dumps(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        len(a[k]) == len(b[k]) and all(np.array_equal(x, y) for x, y in zip(a[k], b[k]))
+        for k in a)
+
+
+def check_dumps(label, d, slam, record) -> dict:
+    """Count run A's dump files against what its loop node did: a
+    similarity matrix each time an ingest passed a multiple of 10
+    keyframes, a before/after pose-graph pair for each keyframe count at
+    which PGO solved, a match image per accepted closure."""
+    names = {p.name for p in Path(d).iterdir()}
+    sims = {n for n in names if n.startswith("sim_matrix_")}
+    before = {n for n in names if n.endswith("_before.npz")}
+    after = {n for n in names if n.endswith("_after.npz")}
+    pngs = {n for n in names if n.endswith(".png")}
+    want_sims = {f"sim_matrix_{c1:05d}.txt" for c0, c1 in record["ingests"] if c0 // 10 != c1 // 10}
+    solved = set(record["solves"])
+    pairs = {(c.kf_i, c.kf_j) for c in slam.loop_closer.closures}
+    out = {"sim": len(sims), "pgo_pairs": len(before), "pgo_solves": len(record["solves"]),
+           "png": len(pngs), "closures": len(slam.loop_closer.closures)}
+    print(f"{label} dumps: {len(sims)} similarity matrices (expected {len(want_sims)}), "
+          f"{len(before)} + {len(after)} pose graphs before + after for {len(record['solves'])} "
+          f"PGO solves at {len(solved)} keyframe counts, {len(pngs)} match images for "
+          f"{len(pairs)} closures")
+    ok = (sims == want_sims and len(sims) >= 1 and len(solved) >= 1
+          and before == {f"pose_graph_{c:05d}_before.npz" for c in solved}
+          and after == {f"pose_graph_{c:05d}_after.npz" for c in solved}
+          and pngs == {f"loop_match_{i:05d}_{j:05d}.png" for i, j in pairs})
+    if not ok:
+        fail(f"{label}: the dump files do not match what the loop node did")
+    return out
+
+
+def check_sparse_map(label, slam, tmp) -> np.ndarray:
+    """The run's sparse cloud: finite, a second cloud() bit-equal to the
+    first, and a PLY written and read back within its printed precision."""
+    from flvis_tpu_torch.viz import cloud
+
+    a, b = slam.sparse_map.cloud(), slam.sparse_map.cloud()
+    path = Path(tmp) / "sparse_map.ply"
+    n = cloud.write_ply(str(path), a)
+    lines = path.read_text().splitlines()
+    back = np.loadtxt(lines[lines.index("end_header") + 1:], ndmin=2)
+    err = float(np.abs(back - a).max()) if len(a) else 0.0
+    print(f"{label} sparse map: {len(slam.sparse_map)} landmarks -> {len(a)} voxel points "
+          f"(0.08 m leaf); a second cloud() {'bit-equal' if np.array_equal(a, b) else 'DIFFERENT'};"
+          f" PLY round trip {n} vertices, max error {err:.2e} m (printed to 4 decimals)")
+    if not (len(a) > 100 and np.isfinite(a).all() and np.array_equal(a, b) and n == len(a)
+            and back.shape == a.shape and err <= 5.1e-5):
+        fail(f"{label}: the sparse map is empty, not finite, does not repeat or does not "
+             "round-trip through its PLY")
+    return a
+
+
+def run_resume(cfg, scfg, device) -> dict:
+    """Phase f's checkpoint resume on (b)'s 256-frame out-and-back: run A
+    straight through (captured, sparse map, dumps); run B over frames
+    0..127, saved; B's file loaded into a fresh captured system (captured
+    before the load: the chunks copy the state in, nothing is re-captured)
+    and a fresh eager one, each over frames 128..255.  Resumed-captured =
+    resumed-eager bit for bit (outputs, BA costs, closures, loop poses,
+    sparse cloud, dump files); resumed against A within CENTRE_TOL on the
+    camera centres; ≥ 1 closure; (b)'s ATE bound."""
+    import os
+    import tempfile
+
+    from flvis_tpu_torch.utils import checkpoint
+
+    seq = loop_sequence(scfg)
+    poses, imgs0, imgs1, path = seq[0], seq[1], seq[2], seq[7]
+    cam = make_camera(scfg, device)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_f_")
+    root = Path(tmp.name)
+    dirs = {k: root / k for k in ("A", "B", "RC", "RE")}
+    for d in dirs.values():
+        d.mkdir()
+    xs = frame_inputs(device, imgs0, imgs1, "vio")
+    t0 = time.perf_counter()
+    a, a_closures, a_record = f_system(cfg, cam, device, dirs["A"])
+    capture_first(a, "vio", "phase f run A", xs)
+    f_frames(a, seq, 0, LOOP_FRAMES)
+    a.flush_loop()
+    torch.cuda.synchronize()
+    print(f"phase f run A (captured, sparse map, dumps), {LOOP_FRAMES} frames: "
+          f"{time.perf_counter() - t0:.1f} s; {len(a.loop_closer.closures)} closures")
+    dumps = check_dumps("phase f run A", dirs["A"], a, a_record)
+    check_sparse_map("phase f run A", a, root)
+
+    b, _, _ = f_system(cfg, cam, device, dirs["B"])
+    capture_first(b, "vio", "phase f run B", xs)
+    f_frames(b, seq, 0, RESUME_AT)
+    ckpt = str(root / "b.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_slam_system(ckpt, b)
+    save_s = time.perf_counter() - t0
+    sizes = {Path(f).name: os.path.getsize(f) for f in (ckpt, ckpt + ".traj.npy",
+                                                        ckpt + ".loop.npz")}
+
+    runs, load_s = {}, {}
+    for key, eager in (("RC", False), ("RE", True)):
+        r, closures, _ = f_system(cfg, cam, device, dirs[key], eager=eager)
+        if not eager:
+            capture_first(r, "vio", "phase f resumed", xs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.load_slam_system(ckpt, r)
+        torch.cuda.synchronize()
+        load_s[key] = time.perf_counter() - t0
+        if key == "RE":
+            reset_counts()
+        t0 = time.perf_counter()
+        outs = f_frames(r, seq, RESUME_AT, LOOP_FRAMES)
+        r.flush_loop()
+        torch.cuda.synchronize()
+        runs[key] = {"slam": r, "outs": outs, "closures": closures, "costs": list(r.ba_costs),
+                     "s": time.perf_counter() - t0}
+    launches = read_counts()
+    print(f"phase f checkpoint of run B after frame {RESUME_AT - 1}: save {save_s:.3f} s, "
+          f"files {sizes} bytes; load {load_s['RC']:.3f} s (into a captured system) / "
+          f"{load_s['RE']:.3f} s (eager); resumed frames {RESUME_AT}..{LOOP_FRAMES - 1}: "
+          f"captured {runs['RC']['s']:.1f} s, eager {runs['RE']['s']:.1f} s [{SMI}]")
+
+    rc, re_ = runs["RC"], runs["RE"]
+    compare_runs("phase f resumed", rc, re_)
+    lc_c, lc_e = rc["slam"].loop_closer, re_["slam"].loop_closer
+    cloud_c, cloud_e = rc["slam"].sparse_map.cloud(), re_["slam"].sparse_map.cloud()
+    same = {"closures": rc["closures"] == re_["closures"],
+            "T_ij": [(c.kf_i, c.kf_j, c.T_ij.q.tolist(), c.T_ij.t.tolist())
+                     for c in lc_c.closures] == [(c.kf_i, c.kf_j, c.T_ij.q.tolist(),
+                                                  c.T_ij.t.tolist()) for c in lc_e.closures],
+            "loop poses": torch.equal(lc_c.kf_q, lc_e.kf_q) and torch.equal(lc_c.kf_t, lc_e.kf_t)
+            and torch.equal(lc_c.T_map_odom.t, lc_e.T_map_odom.t),
+            "sparse cloud": np.array_equal(cloud_c, cloud_e) and len(cloud_c) > 0,
+            "dump files": same_dumps(dump_arrays(dirs["RC"]), dump_arrays(dirs["RE"]))}
+    print(f"phase f resumed captured vs eager: {len(rc['closures'])} / {len(re_['closures'])} "
+          f"closures (i, j, n_match, n_inl) {rc['closures'][:6]}...; sparse cloud "
+          f"{len(cloud_c)} / {len(cloud_e)} points; dump files {len(dump_arrays(dirs['RC']))}; "
+          + ", ".join(f"{k} {'bit-equal' if v else 'DIFFERENT'}" for k, v in same.items()))
+    if not all(same.values()):
+        fail(f"phase f: the resumed captured and eager runs differ in "
+             f"{[k for k, v in same.items() if not v]}")
+
+    C_gt = np.asarray([-R.T @ t for (R, t) in poses])
+    C_a, C_r = a.trajectory_cam_centers(), rc["slam"].trajectory_cam_centers()
+    dev_a = float(np.abs(C_r - C_a).max())
+    head_same = np.array_equal(C_r[:RESUME_AT], C_a[:RESUME_AT])
+    ate_raw = ate(C_r, C_gt)
+    ate_cor = ate(rc["slam"].trajectory_cam_centers(loop_corrected=True), C_gt)
+    bound_m = 0.02 * path + 0.01
+    print(f"phase f resumed vs run A: camera centres within {dev_a:.2e} m (bound {CENTRE_TOL}), "
+          f"frames 0..{RESUME_AT - 1} {'bit-equal' if head_same else 'DIFFERENT'}; resumed ATE "
+          f"odometry {ate_raw:.5f} m, loop-corrected {ate_cor:.5f} m (bound {bound_m:.5f}); "
+          f"{len(rc['closures'])} closures accepted after the resume ({len(lc_c.closures)} in "
+          f"all, run A {len(a.loop_closer.closures)}), {lc_c.count} keyframes in the store")
+    if not (C_r.shape == C_a.shape == (LOOP_FRAMES, 3) and dev_a <= CENTRE_TOL and head_same
+            and len(rc["closures"]) >= 1 and ate_raw < bound_m and ate_cor < bound_m):
+        fail("phase f: the resumed run does not continue run A within its bounds")
+    if min(launches.values()) < 1:
+        fail(f"phase f: the resumed eager run launched no {min(launches, key=launches.get)}")
+    tmp.cleanup()
+    return {"launches": launches, "dumps": dumps, "save_s": save_s, "load_s": load_s,
+            "sizes": sizes}
+
+
+def long_head_run(device, pgo_device=None) -> dict:
+    """(d)'s first PGO_CPU_KF keyframes through a card LoopCloser, its PGO on
+    pgo_device (None: the card): closures, node poses, their mean error
+    against the ground truth, PGO ms a call by route and n_pad, and each
+    call's arguments and result."""
+    from flvis_tpu_torch.loop import loop_closing
+
+    cfg, cam, renders, keys, gt_t, odo_t = long_run_inputs(device)
+    lc = loop_closing.LoopCloser(cfg, cam, device=device, pgo_device=pgo_device)
+    timer = StageTimer()
+    pgo = record_pgo_routes(timer)
+    t0 = time.perf_counter()
+    for c0 in range(0, PGO_CPU_KF, LONG_CHUNK):
+        ks_range = list(range(c0, min(c0 + LONG_CHUNK, PGO_CPU_KF)))
+        il = np.stack([renders[keys[k]][0] for k in ks_range]).astype(np.float32)
+        ir = np.stack([renders[keys[k]][1] for k in ks_range]).astype(np.float32)
+        q = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (len(il), 1))
+        ks = lc.add_keyframes_batch(il, ir, list(range(len(il))), q, odo_t[ks_range], ks_range)
+        if lc.detect_loops_batch(ks):
+            lc.optimize_graph()
+    torch.cuda.synchronize()
+    timer.restore()
+    kf_t = lc.kf_t[:PGO_CPU_KF].cpu()
+    return {"closures": [(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures],
+            "kf_t": kf_t, "kf_q": lc.kf_q[:PGO_CPU_KF].cpu(),
+            "node_err": node_error(kf_t, gt_t), "pgo": _pgo_ms(pgo),
+            "calls": [(r, c["args"], c["out"]) for r, cs in pgo.items() for c in cs],
+            "s": time.perf_counter() - t0,
+            "on": {str(c["args"][0].node_q.device) for cs in pgo.values() for c in cs}}
+
+
+def node_error(kf_t, gt_t) -> float:
+    """Mean distance of the long run's node positions from the truth (kf_t
+    holds T_w_c translations, the camera centres; gt_t T_c_w translations
+    with R = I, whose centres are −t)."""
+    return float(np.linalg.norm(kf_t.numpy() + gt_t[:len(kf_t)], axis=-1).mean())
+
+
+def _pgo_ms(pgo) -> dict:
+    out = {}
+    for r, cs in pgo.items():
+        for c in cs:
+            out.setdefault((r, c["n_pad"]), []).append(c["ms"])
+    return out
+
+
+def run_pgo_device(device, card=None) -> dict:
+    """pgo_device="cpu" from a card LoopCloser over (d)'s first
+    PGO_CPU_KF keyframes (dense and banded PGO both run) against the
+    all-card run over the same keyframes (`card`: (d)'s own, snapshot at
+    that count; run here if None): the same closures; each graph the CPU
+    solved, solved again on the card from the same inputs, node poses
+    within PGO_CPU_TOL; over the run, where each solve starts from the
+    last one's poses and the LM loop stops on a 5e-3 m step, the two runs'
+    node errors against the truth within PGO_CPU_TOL of each other (their
+    poses' largest difference printed); PGO ms a call by device and
+    route."""
+    from flvis_tpu_torch.loop import pose_graph
+    from flvis_tpu_torch.utils.tree import tree_map
+
+    if card is None:
+        card = long_head_run(device)
+    cpu = long_head_run(device, "cpu")
+    dt = float((cpu["kf_t"] - card["kf_t"]).abs().max())
+    dq = float((cpu["kf_q"] - card["kf_q"]).abs().max())
+    per_call = []
+    for route, (graph, fixed, kw), (out, _) in cpu["calls"]:
+        fn = pose_graph.optimize if route == "dense" else pose_graph.optimize_banded
+        again, _ = fn(tree_map(lambda a: a.to(device), graph), fixed.to(device), **kw)
+        live = graph.node_valid
+        per_call.append(float((again.node_t.cpu() - out.node_t)[live].abs().max()))
+
+    def by_route(r):
+        return ", ".join(f"{k[0]} {k[1]}: {statistics.mean(v):.1f} (x{len(v)})"
+                         for k, v in sorted(r["pgo"].items()) if v)
+    print(f"phase f pgo_device=\"cpu\" from a card LoopCloser, {PGO_CPU_KF} keyframes of (d) "
+          f"({cpu['s']:.1f} s; the graphs solved on {sorted(cpu['on'])}): "
+          f"{len(cpu['closures'])} closures, "
+          f"{'equal' if cpu['closures'] == card['closures'] else 'DIFFERENT'} to the all-card "
+          f"run's {len(card['closures'])}; each of the {len(per_call)} graphs solved again on the "
+          f"card from the same inputs: node poses within {max(per_call, default=0):.2e} m "
+          f"(bound {PGO_CPU_TOL}); over the run node error against the truth {cpu['node_err']:.5f}"
+          f" m on the CPU, {card['node_err']:.5f} m on the card (bound: within {PGO_CPU_TOL} of "
+          f"each other), node poses within {dt:.2e} m, q {dq:.2e} [{SMI}]")
+    print(f"phase f PGO synced ms a call by route and n_pad: on the CPU {by_route(cpu)}; on the "
+          f"card {by_route(card)} [{SMI}]")
+    routes = {k[0] for k, v in cpu["pgo"].items() if v}
+    if not (cpu["closures"] == card["closures"] and len(cpu["closures"]) >= 1
+            and max(per_call, default=1.0) <= PGO_CPU_TOL
+            and abs(cpu["node_err"] - card["node_err"]) <= PGO_CPU_TOL
+            and routes == {"dense", "banded"} and cpu["on"] == {"cpu"}):
+        fail("phase f: pgo_device=\"cpu\" does not give the all-card run's closures and poses "
+             "over both PGO routes")
+    return {"cpu": {f"{k[0]} {k[1]}": statistics.mean(v) for k, v in cpu["pgo"].items() if v},
+            "card": {f"{k[0]} {k[1]}": statistics.mean(v) for k, v in card["pgo"].items() if v}}
+
+
+def run_native_kitti(device) -> str:
+    """The native KITTI loader on this machine: whether its library builds;
+    if it does, its frames against cv2's (exact) and a `run_dataset kitti`
+    run over an exported synthetic sequence within its ATE bound (0.02 ·
+    path + 0.01 m).  A library that does not build or load is reported, not
+    failed (the reader then decodes with cv2)."""
+    import tempfile
+
+    from flvis_tpu_torch import run_dataset
+    from flvis_tpu_torch.io import native_loader, trajectory
+    from flvis_tpu_torch.io.kitti import KittiDataset
+    from flvis_tpu_torch.io.synthetic import export_kitti_sequence
+
+    t0 = time.perf_counter()
+    built = native_loader.available()
+    if not built:
+        return (f"the native loader's library did not build or load on this machine "
+                f"({native_loader.build_error()}); KittiDataset.frames reads with cv2")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as d:
+        export_kitti_sequence(d, num_frames=KITTI_FRAMES, seed=0)
+        ds = KittiDataset(d, poses_file=f"{d}/poses.txt", device=device)
+        nat, cv = list(ds.frames(use_native=True)), list(ds.frames(use_native=False))
+        same = len(nat) == len(cv) == KITTI_FRAMES and all(
+            np.array_equal(a.img0, b.img0) and np.array_equal(a.img1, b.img1) for a, b in zip(nat, cv))
+        est = f"{d}/est.kitti"
+        run_dataset.main(["kitti", d, "--poses", f"{d}/poses.txt", "--chunk", "10", "--out", est,
+                          "--device", str(device)])
+        C = trajectory.read_kitti(est)[:, :3, 3]
+        C_gt = ds.gt_poses[:, :3, 3]
+    rmse = ate(C, C_gt)
+    path = float(np.sum(np.linalg.norm(np.diff(C_gt, axis=0), axis=1)))
+    bound_m = 0.02 * path + 0.01
+    msg = (f"built {native_loader.library_path()}; {len(nat)} native frames "
+           f"{'equal' if same else 'NOT equal'} to cv2's; run_dataset kitti over "
+           f"{KITTI_FRAMES} exported frames ({ds.camera.width}x{ds.camera.height}): ATE {rmse:.5f} m "
+           f"(bound {bound_m:.5f} over a {path:.3f} m path); {time.perf_counter() - t0:.1f} s")
+    if not (same and len(C) == KITTI_FRAMES and rmse < bound_m):
+        fail(f"phase f native loader: {msg}")
+    return msg
+
+
+def run_surfaces(cfg, scfg, device, card_pgo=None) -> dict:
+    """Phase f: the resume, sparse map and dumps; pgo_device; the native
+    loader."""
+    t0 = time.perf_counter()
+    r = run_resume(cfg, scfg, device)
+    print(f"phase f checkpoint, sparse map and dumps: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    r["pgo"] = run_pgo_device(device, card_pgo)
+    print(f"phase f pgo_device: {time.perf_counter() - t0:.1f} s")
+    print(f"phase f native loader: {run_native_kitti(device)}")
+    return r
+
+
+def phase_de(only_f: bool = False) -> int:
+    """--phase-de: phases e, d and f in a process of their own, e's two
+    steps captured before the process's first trace (as phase c's: see
     phase_c); the last line of output is a JSON object of their
-    launches."""
+    launches.  --phase-f: phase f alone."""
     from flvis_tpu_torch.ops.kernels import _build
 
     global SMI
@@ -2909,13 +3327,21 @@ def phase_de() -> int:
     device = torch.device("cuda", 0)
     _build.load_library()
     cfg, scfg = system_config()
+    out = {}
+    if not only_f:
+        t0 = time.perf_counter()
+        out["e"] = run_rgbd(cfg, scfg, device)
+        print(f"phase e, RGB-D, captured and eager: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["d"] = run_long(device)
+        print(f"phase d, the long run and the banded PGO: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    e = run_rgbd(cfg, scfg, device)
-    print(f"phase e, RGB-D, captured and eager: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    d = run_long(device)
-    print(f"phase d, the long run and the banded PGO: {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"e": e, "d": d}))
+    f = run_surfaces(cfg, scfg, device, out["d"].pop("snap") if "d" in out else None)
+    out["f"] = {"launches": f["launches"], "pgo_ms": f["pgo"], "save_s": f["save_s"],
+                "load_s": f["load_s"], "sizes": f["sizes"], "dumps": f["dumps"]}
+    print(f"phase f, checkpoints, sparse map, dumps, pgo_device, native loader: "
+          f"{time.perf_counter() - t0:.1f} s [{SMI}]")
+    print(json.dumps(out))
     return 0
 
 
@@ -2925,11 +3351,11 @@ def main() -> int:
         return run_phase_of(args[1], args[2])
     if args == ["--phase-c"]:
         return phase_c()
-    if args == ["--phase-de"]:
-        return phase_de()
+    if args in (["--phase-de"], ["--phase-f"]):
+        return phase_de(only_f=args == ["--phase-f"])
     if args and not (args[:1] == ["--parent"] and len(args) == 2 or args == ["--mma-rates"]):
-        print("usage: python3 chip_smoke.py [--parent DIR | --mma-rates | --phase-c | --phase-de]",
-              file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--parent DIR | --mma-rates | --phase-c | --phase-de "
+              "| --phase-f]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA GPU",
@@ -3043,7 +3469,8 @@ def main() -> int:
         e["launches"] = path_counts[e["name"]]
     print(f"launches in phase e (RGB-D, captured: its wrappers and profiled replays): "
           f"{de['e']}; in phase d (the long run): {de['d']['launches']}, "
-          f"{de['d']['banded_calls']} banded PGO calls")
+          f"{de['d']['banded_calls']} banded PGO calls; in phase f (the resumed eager run, "
+          f"frames {RESUME_AT}..{LOOP_FRAMES - 1}, by its wrappers): {de['f']['launches']}")
     print(json.dumps({"kernels": table}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s in all")
     print(smi)

@@ -7,10 +7,10 @@ stereo pair, and republishes the ground-truth poses file with the
 camera→world axis remap (lines 78-84).  Here it is a plain iterator; KITTI
 images are already rectified, so the pinhole model comes straight from the
 P0/P1 projection rows of calib.txt.  The camera is made on the device the
-caller names (default "cuda"); frames are host numpy arrays decoded with
-cv2, imported inside the functions that need it.  The reference's native
-prefetching decoder (io/native_loader.py) is not ported yet:
-frames(use_native=True) raises.
+caller names (default "cuda"); frames are host numpy arrays, decoded by
+the native prefetching loader (io/native_loader.py, the default) or, when
+its library cannot be built, with cv2, imported inside the functions that
+need it.
 """
 
 from __future__ import annotations
@@ -67,12 +67,25 @@ class KittiDataset:
         return len(self.files)
 
     def frames(self, start: int = 0, stop: Optional[int] = None,
-               use_native: bool = False) -> Iterator[KittiFrame]:
-        if use_native:
-            raise NotImplementedError(
-                "KittiDataset.frames(use_native=True): the native prefetching decoder "
-                "(io/native_loader.py) is not ported yet: ROADMAP Queue 1 item 11")
+               use_native: bool = True) -> Iterator[KittiFrame]:
         stop = stop if stop is not None else len(self)
+
+        if use_native:
+            from . import native_loader
+
+            if native_loader.available():
+                p0 = [os.path.join(self.dir, "image_0", f) for f in self.files[start:stop]]
+                p1 = [os.path.join(self.dir, "image_1", f) for f in self.files[start:stop]]
+                pf = native_loader.StereoPrefetcher(
+                    p0, p1, self.camera.width, self.camera.height)
+                try:
+                    for off, (img0, img1) in enumerate(pf):
+                        i = start + off
+                        t = float(self.times[i]) if i < len(self.times) else float(i) * 0.1
+                        yield KittiFrame(t=t, img0=img0, img1=img1)
+                finally:
+                    pf.close()
+                return
 
         import cv2
 

@@ -27,9 +27,16 @@ Two ways in, with the reference's semantics:
     the database and poses of that moment, as the reference's dispatched
     programs see them.
 
+Debug surface (dump_dir): a similarity matrix every 10 keyframes, the
+pose graph before and after each PGO, and one match image per accepted
+closure, as the reference writes them; only then does the loop node keep
+host copies of the keyframes' left images.  pgo_device: the PGO solve on
+another device (a caller's explicit choice), the poses coming back to the
+pose tables' device.
+
 Differences from the reference, by design:
-  - Not ported: the mesh-sharded database, the loop/PGO devices and the
-    debug dumps.
+  - Not ported: the mesh-sharded database and the loop node on a device
+    of its own (SlamSystem(loop_device=)).
   - Ingest without shape padding: the reference pads its ingest to blocks
     of {32, 8, 4} keyframes to keep XLA shapes stable, then drops the
     padded rows; the port ingests and transforms only the real rows, with
@@ -60,6 +67,7 @@ from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..ops import image as imops, orb, pnp, stereo
 from ..ops.kernels import hamming
+from ..utils.tree import tree_map
 from . import bow, pose_graph
 
 # Loop windows up to this many (padded) nodes take the dense PGO solve, and
@@ -86,6 +94,11 @@ def _ingest(img_l, img_r, cam: StereoCamera, num_features: int, depth_mode: bool
         z = cam.fx * cam.baseline / torch.clamp(disp, min=1e-3)
         d_ok = d_ok & (z > 0.1) & (z < 100.0)
     return uv, desc, kp_valid, cam_m.backproject(cam, uv, z), d_ok & kp_valid
+
+
+def _host_image(img) -> np.ndarray:
+    """A keyframe image (host array or tensor) as a host numpy array."""
+    return img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
 
 
 def _gate_row(db, valid_rows, k: int, lo: int, hi: int, nb_dist: int):
@@ -162,7 +175,7 @@ class LoopCloser:
 
     def __init__(self, cfg: LoopConfig, cam: StereoCamera,
                  vocab: Optional[bow.Vocabulary] = None, device="cuda",
-                 depth_mode: bool = False):
+                 depth_mode: bool = False, pgo_device=None, dump_dir: Optional[str] = None):
         self.cfg = cfg
         self.cam = cam
         self.depth_mode = depth_mode
@@ -172,6 +185,16 @@ class LoopCloser:
         self.vocab = vocab
         self.device = torch.device(device)
         dev = self.device
+        # The PGO solve's device (None: the loop node's own).
+        self.pgo_device = torch.device(pgo_device) if pgo_device is not None else None
+        # Debug-dump directory: similarity-matrix txt every 10 keyframes, the
+        # pose graph before/after each PGO run and a match PNG per accepted
+        # closure (the reference writes these to hard-coded home paths,
+        # vo_loopclosing.cpp:439-452,689-722,879,887).
+        self.dump_dir = dump_dir
+        # Host copies of the keyframes' left images, kept only for the match
+        # images: without dump_dir nothing image-sized is read to the host.
+        self._kf_imgs: Optional[list] = [] if dump_dir is not None else None
         K, F, V = cfg.max_keyframes, cfg.num_orb_features, cfg.vocab_words
         self.bow_db = torch.zeros((K, V), device=dev)
         self.kf_uv = torch.zeros((K, F, 2), device=dev)
@@ -251,6 +274,10 @@ class LoopCloser:
             self.bow_db[k] = bow.transform(self.vocab, desc, kp_valid)
         self.count += 1
         self._maybe_refresh_vocab()
+        if self._kf_imgs is not None:
+            self._kf_imgs.append(_host_image(img_l))
+        if self.dump_dir is not None and self.count % 10 == 0:
+            self.dump_sim_matrix(f"{self.dump_dir}/sim_matrix_{self.count:05d}.txt")
         return k
 
     def add_keyframes_batch(self, imgs_l, imgs_r, sel, q, t, frame_ids) -> list:
@@ -285,7 +312,63 @@ class LoopCloser:
         if self.vocab is None and self.count >= 8:
             self._train_vocab()       # back-fills every row, this chunk's too
         self._maybe_refresh_vocab()
+        if self._kf_imgs is not None:
+            self._kf_imgs.extend(_host_image(imgs_l[[int(f) for f in sel]]))
+        if self.dump_dir is not None and c0 // 10 != self.count // 10:
+            self.dump_sim_matrix(f"{self.dump_dir}/sim_matrix_{self.count:05d}.txt")
         return list(range(c0, c0 + M))
+
+    # -------------------------------------------------------------- debug IO
+    def sim_matrix(self) -> np.ndarray:
+        """Pairwise BoW similarity over the stored keyframes (count,
+        count), each row bow.score_database's, computed in row blocks on the
+        loop node's device."""
+        n = self.count
+        if self.vocab is None or n == 0:
+            return np.zeros((n, n), np.float32)
+        db = self.bow_db[:n]
+        rows = max(1, (1 << 26) // (n * db.shape[1]))     # ≤ 256 MiB of differences a block
+        S = torch.cat([1.0 - 0.5 * torch.sum(torch.abs(db[None, :, :] - db[r:r + rows, None, :]),
+                                             dim=2)
+                       for r in range(0, n, rows)])
+        return S.cpu().numpy()
+
+    def dump_sim_matrix(self, path: str) -> None:
+        np.savetxt(path, self.sim_matrix(), fmt="%.6f")
+
+    def _dump_graph(self, tag: str) -> None:
+        """Pose-graph snapshot (the reference's optimizer.save of
+        before.g2o/after.g2o) as an .npz of node poses + edge list."""
+        n = self.count
+        np.savez(f"{self.dump_dir}/pose_graph_{tag}.npz",
+                 node_q=self.kf_q[:n].cpu().numpy(), node_t=self.kf_t[:n].cpu().numpy(),
+                 loops=np.asarray([[c.kf_i, c.kf_j, c.num_inliers] for c in self.closures],
+                                  np.int64))
+
+    def _match_pairs(self, i: int, j: int):
+        """Mutual-ratio matches between stored keyframes i and j — the
+        debug companion of the verification, a bucket of one for the
+        hamming kernel's match mode.  Returns (match_j, good), (F,) each."""
+        match_j, good = hamming.mutual_ratio_match(
+            self.kf_desc[i][None], self.kf_desc[j][None],
+            (self.kf_kp_valid[i] & self.kf_pc_valid[i])[None], self.kf_kp_valid[j][None],
+            ratio=self.cfg.ratio_max)[:2]
+        return match_j[0], good[0]
+
+    def _save_match_image(self, i: int, j: int) -> None:
+        """The accepted closure (i, j)'s side-by-side match image (the
+        reference's debugging surface for bad loops, vo_loopclosing.cpp:
+        689-722), when both keyframes' images are held."""
+        imgs = self._kf_imgs
+        if imgs is None or len(imgs) <= max(i, j) or imgs[i] is None or imgs[j] is None:
+            return
+        from ..viz import overlay
+
+        mj, good = self._match_pairs(i, j)
+        img = overlay.draw_loop_match(imgs[i], imgs[j], self.kf_uv[i].cpu().numpy(),
+                                      self.kf_uv[j].cpu().numpy(), mj.cpu().numpy(),
+                                      good.cpu().numpy())
+        overlay.save_png(f"{self.dump_dir}/loop_match_{i:05d}_{j:05d}.png", img)
 
     def _grow(self) -> None:
         """Double the keyframe capacity of every table."""
@@ -471,6 +554,7 @@ class LoopCloser:
         row = torch.as_tensor(np.asarray(row, np.float32))
         lc = LoopClosure(i, j, n_inl, SE3(row[:4], row[4:7]))
         self.closures.append(lc)
+        self._save_match_image(i, j)
         return lc
 
     # ------------------------------------------------------------------ PGO
@@ -558,6 +642,11 @@ class LoopCloser:
                               n_pad, cfg.seq_edge_successors)
         fixed = torch.zeros(n_pad, dtype=torch.bool, device=self.device)
         fixed[0] = True
+        if self.dump_dir is not None:
+            self._dump_graph(f"{self.count:05d}_before")
+        if self.pgo_device is not None:
+            g = tree_map(lambda a: a.to(self.pgo_device), g)
+            fixed = fixed.to(self.pgo_device)
         if n_pad > _BANDED_THRESHOLD:
             # _build_graph puts the n_succ·n_pad sequential edges first: the band.
             g2, _ = pose_graph.optimize_banded(
@@ -565,8 +654,11 @@ class LoopCloser:
                 iters=min(cfg.pgo_iters, 20))
         else:
             g2, _ = pose_graph.optimize(g, fixed, iters=min(cfg.pgo_iters, 30))
-        self._apply_pgo(g2.node_q, g2.node_t, i0, wn, n)
+        # The solved poses back next to the pose tables.
+        self._apply_pgo(g2.node_q.to(self.device), g2.node_t.to(self.device), i0, wn, n)
         self._last_pgo_id = j1
+        if self.dump_dir is not None:
+            self._dump_graph(f"{self.count:05d}_after")
 
     # ---------------------------------------------------------------- query
     def corrected_pose(self, T_c_w_odom: SE3) -> SE3:

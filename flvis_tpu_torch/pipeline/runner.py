@@ -53,9 +53,16 @@ chunk's end runs when the next chunk has been stepped, so results return
 one chunk late and flush() drains.  The loop node runs eagerly at the
 chunk ends, outside the graph.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the sparse-map recorder (output_sparse_map) and the loop node on its own
-device (loop_device).
+With output_sparse_map (the reference's YAML flag of that name) the
+system accumulates the BA-corrected landmarks of every valid keyframe
+correction into a viz.cloud.SparseMapRecorder (`sparse_map`): stepwise
+from the correction at once; in a chunk the step also emits each frame's
+correction landmarks (lm_id, lm_pw, lm_mask) into the chunk's output
+buffers, read by the chunk end's one fetch — the flag off, the step and
+its graph are what they are without it.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP item): the
+loop node on its own device (loop_device).
 """
 
 from __future__ import annotations
@@ -76,11 +83,7 @@ from ..ops.kernels import schur
 from ..utils import control
 from ..utils.tree import tree_leaves, tree_map
 from ..vio import vimotion
-
-_NOT_PORTED = {
-    "loop_device": "ROADMAP Queue 1 item 10 (pipeline/overlap.py, SlamSystem(loop_device=))",
-    "output_sparse_map": "ROADMAP Queue 1 item 11 (viz/cloud.py)",
-}
+from ..viz.cloud import SparseMapRecorder
 
 
 def _pack_outputs(outs, costs=None, corr_valids=None):
@@ -247,22 +250,24 @@ def _fused_vio_frame_step(fcfg, bcfg, vcfg, cam: StereoCamera, T_i_c: SE3, null,
     return (fe, ba, vio, corr_new), (out, pkt, corr_new, cost)
 
 
-def _frame_row(ys):
+def _frame_row(ys, sparse_map: bool = False):
     """A frame's outputs (FrameOutput, KeyframePacket, Correction, cost) as
-    (its packed (14,) row, its KeyframePacket)."""
+    (its packed (14,) row, its KeyframePacket); with sparse_map the packet
+    comes as (KeyframePacket, (Correction.lm_id, lm_pw, lm_mask))."""
     out, pkt, corr, cost = ys
     row = _pack_outputs(tree_map(lambda a: a[None], out), cost[None], corr.valid[None])[0]
-    return row, pkt
+    return row, ((pkt, (corr.lm_id, corr.lm_pw, corr.lm_mask)) if sparse_map else pkt)
 
 
-def run_chunk_eager(step, carry, xs, draws):
+def run_chunk_eager(step, carry, xs, draws, sparse_map: bool = False):
     """step(carry, xs_i, draws_i) over a chunk, eagerly: xs a tuple of
     (T, ...) tensors, draws a callable i → Draws.  Returns (carry, packed
-    (T, 14) outputs, KeyframePacket stacked over T)."""
+    (T, 14) outputs, KeyframePacket stacked over T — with sparse_map, with
+    the corrections' landmarks as _frame_row gives them)."""
     rows, pkts = [], []
     for i in range(xs[0].shape[0]):
         carry, ys = step(carry, tuple(x[i] for x in xs), draws(i))
-        row, pkt = _frame_row(ys)
+        row, pkt = _frame_row(ys, sparse_map)
         rows.append(row)
         pkts.append(pkt)
     return carry, torch.stack(rows), tree_map(lambda *a: torch.stack(a), *pkts)
@@ -347,12 +352,10 @@ class SlamSystem:
     def __init__(self, cfg: SystemConfig, cam: StereoCamera, *, device="cuda", seed: int = 0,
                  T_i_c: Optional[SE3] = None, use_imu: bool = False, use_loop: bool = False,
                  output_sparse_map: bool = False, loop_device=None, pipelined: bool = False):
-        asked = {"loop_device": loop_device is not None,
-                 "output_sparse_map": output_sparse_map}
-        for name, on in asked.items():
-            if on:
-                raise NotImplementedError(f"SlamSystem({name}=...) is not ported yet: "
-                                          f"{_NOT_PORTED[name]}")
+        if loop_device is not None:
+            raise NotImplementedError("SlamSystem(loop_device=...) is not ported yet: ROADMAP "
+                                      "Queue 1 item 10 (pipeline/overlap.py, "
+                                      "SlamSystem(loop_device=))")
         self.cfg = cfg
         self.cam = cam
         self.device = torch.device(device)
@@ -368,6 +371,9 @@ class SlamSystem:
                                        depth_mode=cfg.frontend.depth_mode)
                             if use_loop else None)
         self.loop_stage = LoopStage(self.loop_closer) if use_loop else None
+        # The reference's `output_sparse_map` YAML flag: BA-corrected
+        # landmarks into a voxel-downsampled map cloud (vo_localmap.cpp:367-377).
+        self.sparse_map = SparseMapRecorder(device=self.device) if output_sparse_map else None
         self._null = window_ba.null_correction(cfg.backend, device=self.device)
         self.pending_corr = self._null  # always a Correction; valid=False applies nothing
         self._frames_processed = 0
@@ -446,6 +452,9 @@ class SlamSystem:
             self.keyframes.append(pkt)
             self.ba_costs.append(float(cost))
             self.n_valid_corrections += int(self.pending_corr.valid)
+            if self.sparse_map is not None and bool(self.pending_corr.valid):
+                c = self.pending_corr
+                self.sparse_map.add_correction(c.lm_id, c.lm_pw, c.lm_mask)
             if self.loop_closer is not None:
                 # The loop node ingests the same keyframe stream, stepwise.
                 k = self.loop_closer.add_keyframe(img0, img1, out.T_c_w, int(pkt.frame_id))
@@ -499,11 +508,13 @@ class SlamSystem:
             step = self._vio_step if vio else self._stereo_step
             fcfg = self.cfg.frontend
 
+            sparse_map = self.sparse_map is not None
+
             def fn(c, inputs):
                 *frame, u = inputs
                 with schur.use_ticket(self._ticket):
                     c, ys = step(c, tuple(frame), tracker.draws_of(fcfg, u))
-                return c, _frame_row(ys)
+                return c, _frame_row(ys, sparse_map)
 
             u = torch.zeros(tracker.draws_size(fcfg), dtype=torch.float32, device=self.device)
             cap = self._captured[key] = _Captured(
@@ -517,7 +528,8 @@ class SlamSystem:
         fcfg = self.cfg.frontend
         carry, packed, pkts = run_chunk_eager(
             self._vio_step if vio else self._stereo_step, self._carry(vio), xs,
-            lambda i: tracker.make_draws(fcfg, self.generator, self.device))
+            lambda i: tracker.make_draws(fcfg, self.generator, self.device),
+            self.sparse_map is not None)
         self._set_carry(vio, carry)
         return packed, pkts, None
 
@@ -568,11 +580,16 @@ class SlamSystem:
         the packed outputs with the captured step's taken counts and the
         loop stage's pending gate rows and verification statistics; resolve
         the loop stage; log the chunk; ingest its keyframes into the loop
-        node and gate them."""
+        node and gate them; with the sparse map, the chunk's correction
+        landmarks come in the same fetch (the ids' int32 bits as float32)."""
         stage = self.loop_stage
-        packed, taken, rows, stats = fetch(
+        lm_dev = ()
+        if self.sparse_map is not None:
+            pkts, (lm_id, lm_pw, lm_mask) = pkts
+            lm_dev = (lm_id.view(torch.float32), lm_pw, lm_mask)
+        packed, taken, rows, stats, *lm = fetch(
             packed_dev, cap.step.taken if cap is not None else None,
-            *(stage.pending() if stage is not None else (None, None)))
+            *(stage.pending() if stage is not None else (None, None)), *lm_dev)
         if cap is not None:
             cap.step.settle(taken)
         if stage is not None:
@@ -585,6 +602,8 @@ class SlamSystem:
             self.keyframes.append(tree_map(lambda a: a[i], pkts))
             self.ba_costs.append(float(packed[i, 12]))
             self.n_valid_corrections += int(packed[i, 13] > 0.5)
+            if lm and packed[i, 13] > 0.5:
+                self.sparse_map.add_correction(lm[0][i].view(np.int32), lm[1][i], lm[2][i] > 0.5)
         for i in range(T):
             self.trajectory.append((first + i, float(ts[i]) if ts is not None else 0.0,
                                     outs.T_c_w.q[i], outs.T_c_w.t[i]))

@@ -982,9 +982,10 @@ def test_pgo_repeats_bit_for_bit(dev):
     assert not torch.equal(a.node_t, g.node_t)
 
 
-def _loop_composition(dev):
+def _loop_composition(dev, **kw_lc):
     """The loop run of tests/test_torch_loop.py (a 28-keyframe out-and-back
-    with 1 cm of drift per keyframe) through one LoopCloser on the card."""
+    with 1 cm of drift per keyframe) through one LoopCloser on the card
+    (kw_lc: its pgo_device, dump_dir)."""
     from flvis_tpu_torch.config import LoopConfig
     from flvis_tpu_torch.geometry import camera, so3
     from flvis_tpu_torch.geometry.se3 import SE3
@@ -998,7 +999,7 @@ def _loop_composition(dev):
               ratio_ransac=0.3, seq_edge_successors=3)
     cam = camera.make(scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline, width=scfg.width,
                       height=scfg.height, device=dev)
-    lc = loop_closing.LoopCloser(LoopConfig(**kw), cam, device=dev)
+    lc = loop_closing.LoopCloser(LoopConfig(**kw), cam, device=dev, **kw_lc)
     n = 28
     xs = list(np.linspace(0, 0.8, n // 2)) + list(np.linspace(0.8, 0.02, n - n // 2))
     for k, x in enumerate(xs):
@@ -1725,3 +1726,116 @@ def test_dead_captured_system_is_not_collected_mid_capture(dev, monkeypatch):
     assert seen == [False] and gc.isenabled()
     assert dead() is None
     assert np.all(out.status[1:] == 1)
+
+
+def _vio_loop_system(dev):
+    """The entry system with IMU, the loop node and the sparse map, on dev."""
+    import dataclasses
+
+    from flvis_tpu_torch.config import LoopConfig
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _entry_system(dev)
+    cfg = dataclasses.replace(cfg, loop=LoopConfig(
+        max_keyframes=64, num_orb_features=128, vocab_words=128, kf_start=4, kf_dist=3,
+        kf_max_dist=64, nkf_closest=1, min_pts=12, min_score=0.03, ratio_ransac=0.3,
+        seq_edge_successors=3))
+    return SlamSystem(cfg, cam, device=dev, seed=0, use_imu=True, use_loop=True,
+                      output_sparse_map=True)
+
+
+def test_checkpoint_resume_captured_matches_eager(dev, tmp_path):
+    """A checkpoint after 12 frames (the entry out-and-back, IMU + loop +
+    sparse map) loaded into a system whose step was captured before the
+    load, and into an eager one: the next 12 frames give the same outputs,
+    BA costs, closures, loop poses and sparse cloud, bit for bit — the
+    chunks copy the loaded state into the graph's buffers, nothing is
+    captured again."""
+    from flvis_tpu_torch.utils import checkpoint
+
+    imgs0, imgs1, ts, imu = _entry_frames(n=24, blank=())
+    first = (imgs0[:12], imgs1[:12], ts[:12], tuple(x[:12] for x in imu))
+    rest = (imgs0[12:], imgs1[12:], ts[12:], tuple(x[12:] for x in imu))
+    a = _vio_loop_system(dev)
+    _chunks(a, "vio", first, 6)
+    p = str(tmp_path / "a.npz")
+    checkpoint.save_slam_system(p, a)
+    cap = _vio_loop_system(dev)
+    xs = (torch.as_tensor(imgs0[:1], device=dev), torch.as_tensor(imgs1[:1], device=dev),
+          torch.zeros(1, device=dev), torch.zeros((1, 16, 3), device=dev),
+          torch.zeros((1, 16, 3), device=dev), torch.zeros((1, 16), device=dev),
+          torch.zeros((1, 16), dtype=torch.bool, device=dev))
+    step = cap._captured_step("vio", xs)
+    checkpoint.load_slam_system(p, cap)
+    eag = _vio_loop_system(dev)
+    checkpoint.load_slam_system(p, eag)
+    got = _chunks(cap, "vio", rest, 6)
+    cap.flush_loop()
+    want, costs = _eager_chunks(eag, "vio", rest, 6)
+    eag.flush_loop()
+    torch.cuda.synchronize()
+    assert cap._captured[("vio",) + tuple(x.dtype for x in xs)] is step
+    assert step.step.replays == 12
+    _assert_same_outputs(got, want)
+    assert cap.ba_costs == costs and len(costs) >= 2
+    lc, le = cap.loop_closer, eag.loop_closer
+    assert [(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures] == \
+        [(c.kf_i, c.kf_j, c.num_inliers) for c in le.closures]
+    assert torch.equal(lc.kf_t, le.kf_t) and torch.equal(lc.T_map_odom.t, le.T_map_odom.t)
+    assert cap._frames_processed == 24 and len(cap.trajectory) == 24
+    cc, ce = cap.sparse_map.cloud(), eag.sparse_map.cloud()
+    assert len(cc) > 0 and np.array_equal(cc, ce)
+
+
+def test_voxel_downsample_repeats_at_100k(dev):
+    """voxel_downsample on the card at 100k points (clusters, invalid
+    points): the same bits twice, and the CPU's bits (sorts and a float64
+    tree of adds: no atomics)."""
+    from flvis_tpu_torch.viz import cloud
+
+    rng = np.random.default_rng(0)
+    n = 100_000
+    pts = (rng.normal(size=(n, 3)) * [4.0, 2.0, 1.0]).astype(np.float32)
+    pts[n // 2:] = pts[:n - n // 2] + rng.normal(scale=0.02, size=(n - n // 2, 3))
+    mask = rng.uniform(size=n) > 0.1
+    p, m = torch.as_tensor(pts, device=dev), torch.as_tensor(mask, device=dev)
+    a, am = cloud.voxel_downsample(p, m)
+    b, bm = cloud.voxel_downsample(p, m)
+    c, cm = cloud.voxel_downsample(torch.as_tensor(pts), torch.as_tensor(mask))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(am, bm)
+    assert torch.equal(a.cpu(), c) and torch.equal(am.cpu(), cm)
+    assert 1000 < int(am.sum()) < int(mask.sum())
+
+
+def test_card_loop_closer_with_pgo_on_cpu(dev, tmp_path):
+    """A card LoopCloser whose PGO solves on the CPU (pgo_device="cpu",
+    dumping its debug surface): the all-card run's closures, node poses
+    within 1e-3 m (the same graphs, float32 solves on two devices), the
+    tables on the card; a match image per closure."""
+    a = _loop_composition(dev)
+    b = _loop_composition(dev, pgo_device="cpu", dump_dir=str(tmp_path))
+    assert len(a.closures) >= 1
+    assert [(c.kf_i, c.kf_j, c.num_inliers) for c in a.closures] == \
+        [(c.kf_i, c.kf_j, c.num_inliers) for c in b.closures]
+    assert b.kf_t.is_cuda and b.T_map_odom.t.is_cuda
+    assert float((a.kf_t - b.kf_t).abs().max()) <= 1e-3
+    assert len(list(tmp_path.glob("loop_match_*.png"))) == len(b.closures)
+    assert len(list(tmp_path.glob("pose_graph_*_before.npz"))) >= 1
+
+
+def test_sparse_map_flag_keeps_the_graph(dev):
+    """The captured stereo step with output_sparse_map off and on: the same
+    graph (top-level node census) — the flag only adds outputs the step
+    already makes; off, the step's outputs are the row and packet alone."""
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _entry_system(dev)
+    imgs0, imgs1, _, _ = _entry_frames(blank=())
+    xs = (torch.as_tensor(imgs0[:1], device=dev), torch.as_tensor(imgs1[:1], device=dev))
+    steps = [SlamSystem(cfg, cam, device=dev, seed=0, output_sparse_map=on)
+             ._captured_step("stereo", xs).step for on in (False, True)]
+    off, on = steps
+    assert off.top_nodes == on.top_nodes
+    assert [x["nodes"] for x in off.sites] == [x["nodes"] for x in on.sites]
+    assert len(off.ys) == 2 and len(on.ys) == 2 and len(on.ys[1]) == 2

@@ -22,6 +22,7 @@ from flvis_tpu.io import trajectory as jtraj
 from flvis_tpu.utils import evaluation as jeval
 from flvis_tpu_torch import run_dataset
 from flvis_tpu_torch.io import euroc as teuroc, kitti as tkitti, rosbag as trosbag
+from flvis_tpu_torch.io import native_loader as tnative
 from flvis_tpu_torch.io import trajectory as ttraj
 from flvis_tpu_torch.io.synthetic import (PlanarScene, SceneConfig, export_euroc_sequence,
                                           orbit_trajectory)
@@ -120,8 +121,41 @@ def test_kitti_reader_matches(tmp_path):
         np.testing.assert_array_equal(a.img0, b.img0)
         np.testing.assert_array_equal(a.img1, b.img1)
         assert a.t == b.t
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        next(td.frames(use_native=True))
+    # frames() decodes with the native loader (built here: g++ and libpng
+    # headers are present); its frames equal cv2's exactly.
+    assert tnative.available(), tnative.build_error()
+    for a, b in zip(td.frames(use_native=True), td.frames(use_native=False)):
+        np.testing.assert_array_equal(a.img0, b.img0)
+        np.testing.assert_array_equal(a.img1, b.img1)
+        assert a.img0.dtype == b.img0.dtype == np.float32 and a.t == b.t
+
+
+def test_native_decoder_matches_cv2(tmp_path):
+    """io/native_loader: decode_png_gray and the stereo prefetcher against
+    cv2 on 8-bit gray PNGs (exact), and a 16-bit gray PNG (stripped to its
+    high byte)."""
+    import cv2
+
+    rng = np.random.default_rng(4)
+    g8 = rng.integers(0, 256, (37, 53), np.uint8)
+    cv2.imwrite(str(tmp_path / "g8.png"), g8)
+    got = tnative.decode_png_gray(str(tmp_path / "g8.png"))
+    np.testing.assert_array_equal(got, cv2.imread(str(tmp_path / "g8.png"),
+                                                  cv2.IMREAD_GRAYSCALE).astype(np.float32))
+    assert got.dtype == np.float32 and got.shape == (37, 53)
+    g16 = rng.integers(0, 65536, (20, 30), np.uint16)
+    cv2.imwrite(str(tmp_path / "g16.png"), g16)
+    np.testing.assert_array_equal(tnative.decode_png_gray(str(tmp_path / "g16.png")),
+                                  (g16 >> 8).astype(np.float32))
+    assert tnative.decode_png_gray(str(tmp_path / "missing.png")) is None
+    paths = [str(tmp_path / "g8.png")] * 3
+    pf = tnative.StereoPrefetcher(paths, paths, 53, 37)
+    frames = list(pf)
+    pf.close()
+    assert len(frames) == 3
+    for a, b in frames:
+        np.testing.assert_array_equal(a, got)
+        np.testing.assert_array_equal(b, got)
 
 
 SCFG = SceneConfig(width=256, height=192, fx=200.0, fy=200.0, cx=128.0, cy=96.0,

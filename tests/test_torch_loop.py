@@ -224,3 +224,88 @@ def test_loop_run_reduces_drift(loop_runs):
     T = tl.corrected_pose(tse3.SE3(torch.as_tensor(odo[last][0]),
                                    torch.as_tensor(odo[last][1])))
     np.testing.assert_allclose(tse3.inverse(T).t.numpy(), C_corr, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def dump_runs(tmp_path_factory):
+    """tests/test_loop_closing.py:680-720's debug-dump run (14 keyframes out
+    and back with injected drift) through both LoopClosers on the
+    reference's draws: the port's with dump_dir and pgo_device="cpu", the
+    JAX one with dump_dir."""
+    dirs = [tmp_path_factory.mktemp(n) for n in ("tdump", "jdump")]
+    mp = pytest.MonkeyPatch()
+    _jax_draws(mp)
+    try:
+        scfg = SceneConfig(width=256, height=192, fx=200.0, fy=200.0, cx=128.0, cy=96.0,
+                           baseline=0.12)
+        scene = PlanarScene(scfg, plane_depth=8.0, seed=5)
+        args = (scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline)
+        kw = dict(max_keyframes=32, num_orb_features=128, vocab_words=64, kf_start=6,
+                  kf_dist=4, kf_max_dist=32, nkf_closest=1, min_pts=10, min_score=0.02,
+                  ratio_ransac=0.25, seq_edge_successors=2)
+        tl = tlc.LoopCloser(LoopConfig(**kw), tcam.make(*args, width=256, height=192,
+                                                        device="cpu"),
+                            device="cpu", pgo_device="cpu", dump_dir=str(dirs[0]))
+        jl = jlc.LoopCloser(JLoopConfig(**kw), jcam.make(*args, width=256, height=192),
+                            dump_dir=str(dirs[1]), pgo_device=jax.devices()[-1])
+        n = 14
+        half = n // 2
+        xs = list(np.linspace(0, 0.5, half)) + list(np.linspace(0.5, 0.01, n - half))
+        for k, x in enumerate(xs):
+            t = -np.asarray([x, 0.0, 0.0])
+            img_l, img_r, _ = scene.render(np.eye(3), t)
+            t_odo = (t + np.asarray([0.0, 0.012 * k, 0.0])).astype(np.float32)
+            for lc, T in ((jl, jse3.SE3(jso3.identity(), jnp.asarray(t_odo))),
+                          (tl, tse3.SE3(torch.tensor([1.0, 0, 0, 0]), torch.as_tensor(t_odo)))):
+                idx = lc.add_keyframe(img_l, img_r, T, frame_id=k)
+                if lc.detect_loop(idx) is not None:
+                    lc.optimize_graph()
+    finally:
+        mp.undo()
+    return tl, jl, dirs[0]
+
+
+def test_dump_dir_and_pgo_device(dump_runs):
+    """tests/test_loop_closing.py:680-720's assertions on the port
+    (pgo_device="cpu"): similarity dumps every 10 keyframes, the pose graph
+    before and after each PGO, one match PNG per accepted closure."""
+    tl, _, d = dump_runs
+    sims = sorted(d.glob("sim_matrix_*.txt"))
+    assert len(sims) >= 1
+    m = np.loadtxt(sims[0])
+    assert m.shape == (10, 10)
+    np.testing.assert_allclose(np.diag(m), 1.0, atol=1e-5)
+    np.testing.assert_allclose(m, m.T, atol=1e-5)
+    S = tl.sim_matrix()
+    assert S.shape == (tl.count, tl.count)
+    assert tl.closures, "the port's run accepted no closure"
+    before = sorted(d.glob("pose_graph_*_before.npz"))
+    after = sorted(d.glob("pose_graph_*_after.npz"))
+    assert before and len(before) == len(after)
+    a = np.load(after[-1])
+    assert a["node_q"].shape[1] == 4 and len(a["loops"]) >= 1
+    np.testing.assert_array_equal(a["node_t"], tl.kf_t[:tl.count].numpy())
+    matches = sorted(d.glob("loop_match_*.png"))
+    assert len(matches) == len(tl.closures)
+    import cv2
+
+    m0 = cv2.imread(str(matches[0]))
+    assert m0 is not None and m0.shape == (192, 512, 3)
+    assert tl.kf_q.device.type == "cpu" and tl.pgo_device == torch.device("cpu")
+
+
+def test_sim_matrix_matches(dump_runs):
+    """sim_matrix (and its dumped file) against the JAX LoopCloser's within
+    1e-5: the same vocabulary (the reference's draws) over the same ORB
+    descriptors."""
+    tl, jl, d = dump_runs
+    assert tl.count == jl.count == 14
+    np.testing.assert_allclose(tl.sim_matrix(), jl.sim_matrix(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np.loadtxt(d / "sim_matrix_00010.txt"),
+                               np.asarray(jl.sim_matrix())[:10, :10], atol=1e-5, rtol=0)
+
+
+def test_no_host_images_without_dump_dir(loop_runs):
+    """Without dump_dir the loop node keeps no host copy of an image."""
+    _, tl, _, _, _ = loop_runs
+    assert tl.dump_dir is None and tl._kf_imgs is None and tl.pgo_device is None

@@ -69,7 +69,8 @@ def runs():
     cam_args = (scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline)
 
     jsys = JaxSlam(_cfg(scfg, jconfig),
-                   jcam.make(*cam_args, width=scfg.width, height=scfg.height))
+                   jcam.make(*cam_args, width=scfg.width, height=scfg.height),
+                   output_sparse_map=True)
     jouts = [jsys.process_frame(l, r) for (l, r) in frames]
 
     real = ttr.track_frame
@@ -85,7 +86,7 @@ def runs():
     try:
         tsys = trunner.SlamSystem(
             cfg, tcam.make(*cam_args, width=scfg.width, height=scfg.height, device="cpu"),
-            device="cpu")
+            device="cpu", output_sparse_map=True)
         touts = [tsys.process_frames(np.stack([f[0] for f in frames[i:i + 4]]),
                                      np.stack([f[1] for f in frames[i:i + 4]]))
                  for i in range(0, N_FRAMES, 4)]
@@ -137,11 +138,30 @@ def test_ate_and_backend_state(runs):
 
 
 def test_unported_options_raise():
+    """The loop node on a device of its own is the one option still to
+    port (output_sparse_map is ported: test_sparse_map_matches)."""
     scfg = SceneConfig()
     cam = tcam.make(scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline, device="cpu")
-    for kw in ({"output_sparse_map": True}, {"loop_device": "cpu"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trunner.SlamSystem(_cfg(scfg), cam, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        trunner.SlamSystem(_cfg(scfg), cam, device="cpu", loop_device="cpu")
+
+
+def _assert_same_cloud(tsys, jsys):
+    """The two systems' sparse maps: the same landmark count and voxel
+    count, voxels within 1e-3 m in the same order (landmark positions after
+    BA, float rounding compounded across keyframes)."""
+    ct, cj = tsys.sparse_map.cloud(), jsys.sparse_map.cloud()
+    assert len(tsys.sparse_map) == len(jsys.sparse_map) > 0
+    assert len(ct) == len(cj) > 10
+    np.testing.assert_allclose(ct, cj, atol=1e-3, rtol=0)
+
+
+def test_sparse_map_matches(runs):
+    """SlamSystem(output_sparse_map=True) through process_frames (chunks of
+    4: the corrections' landmarks come with the chunk's one fetch) against
+    the JAX stepwise system's SparseMapRecorder."""
+    _, jsys, _, tsys, _ = runs
+    _assert_same_cloud(tsys, jsys)
 
 
 # --- stereo + IMU (+ loop): the out-and-back pan of tests/test_pipeline.py:383-415
@@ -224,6 +244,21 @@ def test_stepwise_imu_matches(vio_scene):
     finally:
         mp.undo()
     _assert_same_run(jsys, tsys)
+
+
+def test_stepwise_sparse_map_matches(vio_scene):
+    """output_sparse_map through the stepwise process_frame, 12 frames."""
+    _, frames, _, _, _, _ = vio_scene
+    jsys, tsys = _vio_systems(output_sparse_map=True)
+    mp = _with_jax_draws()
+    try:
+        for k in range(12):
+            for s in (jsys, tsys):
+                s.process_frame(frames[k][0], frames[k][1])
+    finally:
+        mp.undo()
+    assert tsys.n_valid_corrections >= 1
+    _assert_same_cloud(tsys, jsys)
 
 
 def test_process_frames_vio_matches(vio_scene):
