@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase-c
     python3 chip_smoke.py --phase-de
     python3 chip_smoke.py --phase-f
+    python3 chip_smoke.py --phase-g
 
 Builds the port's CUDA kernels from flvis_tpu_torch/csrc/, holds each
 kernel against its plain PyTorch version at the shapes the main paths give
@@ -74,7 +75,25 @@ paths of the port at the EuRoC-sized bench configuration:
      PGO) against (d)'s all-card run at that count; the native KITTI
      loader's build, its frames against cv2's and a run_dataset kitti run.
      Phases e, d and f run in a process of their own (`--phase-de`), e's
-     steps captured before its first trace; `--phase-f` runs f alone.
+     steps captured before its first trace; `--phase-f` runs f alone;
+  g. the multi-device paths (`--phase-g`, a process of its own, run
+     after the `--phase-de` process, alone on the card; its multi-rank
+     steps run on 2 ranks spawned once, which share the card through a
+     gloo process group): (a)'s orbit through OverlappedPipeline with
+     frontend and backend on the card (bit-equal to stepwise
+     process_frame, one fetch a frame; frames/s of both) and with the
+     backend on the CPU (its host syncs counted); (b) captured with
+     loop_device="cpu" (the closing queries and node statistics of (b)'s
+     own run, and where a closure takes another candidate, a witness: the
+     same keyframes and poses, mostly the same descriptors, a near-tie in
+     the card's gate replayed on those keyframes); optimize_sharded on
+     the bench window and chunk_fused_sharded over 16 frames of (a)
+     against the single-device path at pallas_schur=False (JAX's bounds;
+     the ranks bit-equal); MultiSeqSlam over 2 ranks x 4 sequences against
+     phase c's one-process captured run, per sequence bit for bit, and its
+     checkpoint's round trip;
+     (d)'s first 384 keyframes through LoopCloser(mesh=) against the
+     unsharded run, with the time of each stage; entry.dryrun_multichip(2).
 
 Each path runs with every kernel's launch count set to 0 just before it and
 read just after (a captured step is captured before that, its warm-up's
@@ -1767,7 +1786,7 @@ def run_headline(cfg, scfg, cam, device, eager: bool = False):
     init_frames = int(np.sum(n_imu[:-1] >= cfg.vio.init_samples))
     verify = verification_summary(timer, accepted, label)
     r.update(ate=(ate_raw, ate_cor), verify=verify,
-             closures=[tuple(x[:4]) for x in accepted])
+             closures=[tuple(x[:4]) for x in accepted], lc_closures=closures)
     print(f"{label}: {LOOP_FRAMES} frames, {n_kf} keyframes ({lc.count} in the loop "
           f"store), statuses {np.bincount(status)}, {len(closures)} closures "
           f"{closures[:8]}{'...' if len(closures) > 8 else ''}, {verify['pairs']} verified "
@@ -1784,6 +1803,9 @@ def run_headline(cfg, scfg, cam, device, eager: bool = False):
           + f"; over the timed chunks {staged:.0f} in the loop node and "
           f"{1000.0 * plain_s - staged:.0f} outside it")
     r["graph"] = graph_report(slam, label)
+    r["node_stats"] = (tuple(next(iter(slam._captured.values())).step.node_stats())
+                       if captured else None)
+    r["store"] = loop_store(lc)
     print(launch_line(label, counted, replayed, captured, r["profiled"])
           + f" (IMU-initialised frames {init_frames})")
     if not np.all(status[1:] == 1):
@@ -2073,6 +2095,9 @@ def run_multiseq(cfg, scfg, cam, device, eager: bool = False):
     frame_ms = 1000.0 * timed_s / timed_frames
     p_wall, p_sum, p_union, p_events, _ = prof
     r = {"packed": packed, "ate": (ates, ates_cor), "keyframes": [lc.count for lc in ms.loopers],
+         "costs": [np.asarray(c) for c in getattr(ms, "ba_costs", [])],
+         "lc_closures": [[(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures]
+                         for lc in ms.loopers],
          "closures": [[tuple(c[:4]) for c in seq] for seq in accepted],
          "fps": S * timed_frames / timed_s, "busy": p_union / T / frame_ms,
          "overlap_profiled": p_sum / max(p_union, 1e-9), "launches": launches,
@@ -2173,6 +2198,8 @@ def phase_c() -> int:
     cfg, scfg = system_config()
     cam = make_camera(scfg, device)
     ms_r = run_multiseq(cfg, scfg, cam, device)
+    g_keep(G_REF_C, {"packed": ms_r["packed"], "costs": ms_r["costs"],
+                     "closures": ms_r["lc_closures"]})
     ms_e = run_multiseq(cfg, scfg, cam, device, eager=True)
     compare_multiseq(ms_r, ms_e)
     phase_c_line(ms_r, ms_e)
@@ -3345,6 +3372,678 @@ def phase_de(only_f: bool = False) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase g
+G_RANKS = 2                             # ranks sharing the one card (gloo)
+G_TOL_T, G_TOL_LM = 5e-4, 5e-3          # tests/test_parallel.py:353-356,398-414
+G_OVERLAP_CPU_TOL = 1e-3                # overlap (ii): the CPU's plain Schur step vs the kernel
+G_CHUNK_FRAMES = 16                     # (a)'s first frames through chunk_fused_sharded
+G_PGO_TOL = 1e-4                        # a sharded run's PGO solve vs the unsharded one
+G_SCORE_TOL = 1e-5                      # tests/test_loop_closing.py:666-669
+G_DESC_SHARE = 0.5                      # (g)2: another view of the scene shares ~0 descriptors
+G_REF_B, G_REF_C = "phase_b_reference.pkl", "phase_c_reference.pkl"
+
+
+def g_reference(name):
+    """A reference an earlier phase left in the RENDERS directory, or None."""
+    import os
+    import pickle
+
+    d = os.environ.get(RENDERS)
+    path = Path(d) / name if d else None
+    if path is None or not path.exists():
+        return None
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def g_keep(name, value) -> None:
+    """Leave `value` in the RENDERS directory for phase g (main's run only)."""
+    import os
+    import pickle
+
+    d = os.environ.get(RENDERS)
+    if d:
+        with open(Path(d) / name, "wb") as f:
+            pickle.dump(value, f)
+
+
+def g_overlap(cfg, scfg, cam, device) -> dict:
+    """Step 1: (a)'s orbit through OverlappedPipeline — (i) frontend and
+    backend on the card (the backend's captured step on a stream of its
+    own), bit-equal to stepwise SlamSystem.process_frame on the card, one
+    fetch a frame; (ii) the backend on the CPU: the same statuses and
+    keyframes, t within G_OVERLAP_CPU_TOL of (i), ATE in (a)'s bound."""
+    from flvis_tpu_torch.pipeline.overlap import OverlappedPipeline
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    poses, imgs0, imgs1, _ = orbit_frames(scfg)
+    warm = WARM_FRAMES                  # frames before the timed ones (the backend's capture)
+
+    def drive(step, n_frames=N_FRAMES):
+        outs, t0 = [], 0.0
+        for i in range(n_frames):
+            if i == warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            outs.append(step(imgs0[i], imgs1[i]))
+        torch.cuda.synchronize()
+        return outs, (n_frames - warm) / (time.perf_counter() - t0)
+
+    reset_counts()
+    ref = SlamSystem(cfg, cam, device=device, seed=0)
+    ref_outs, ref_fps = drive(ref.process_frame)
+    ref_counts = read_counts()
+    reset_counts()
+    pipe = OverlappedPipeline(cfg, cam, device, device)
+    fetch_ms = [0.0]
+    real_fetch = pipe._fetch
+
+    def timed_fetch(x):
+        t0 = time.perf_counter()
+        out = real_fetch(x)
+        fetch_ms[0] += 1000.0 * (time.perf_counter() - t0)
+        return out
+
+    pipe._fetch = timed_fetch
+    outs_i, fps_i = drive(pipe.process_frame)
+    counts_i = read_counts()
+    q_i = np.asarray([q for (_, q, _) in pipe.trajectory])
+    t_i = np.asarray([t for (_, _, t) in pipe.trajectory])
+    same = (np.array_equal(q_i, np.asarray([q for (_, _, q, _) in ref.trajectory]))
+            and np.array_equal(t_i, np.asarray([t for (_, _, _, t) in ref.trajectory]))
+            and [o.status for o in outs_i] == [int(o.status) for o in ref_outs]
+            and pipe.ba_costs() == ref.ba_costs)
+    pipe2 = OverlappedPipeline(cfg, cam, device, "cpu")
+    outs_ii, fps_ii = drive(pipe2.process_frame)
+    t_ii = np.asarray([t for (_, _, t) in pipe2.trajectory])
+    dt = float(np.abs(t_ii - t_i).max())
+    from flvis_tpu_torch.geometry import so3
+
+    C_ii = np.asarray([-so3.to_matrix(torch.as_tensor(q)).numpy().T @ t
+                       for (_, q, t) in pipe2.trajectory])
+    err = ate(C_ii, np.asarray([-R.T @ t for (R, t) in poses]))
+    bound_m = 0.02 * 0.02 * N_FRAMES + 0.01           # (a)'s, tests/test_tracker.py:97
+    same_ii = ([(o.status, bool(o.is_keyframe)) for o in outs_ii]
+               == [(o.status, bool(o.is_keyframe)) for o in outs_i])
+    n_kf = sum(bool(o.is_keyframe) for o in outs_i)
+    print(f"phase g overlap (i), frontend and backend on the card, {N_FRAMES} frames, {n_kf} "
+          f"keyframes: {'bit-equal' if same else 'DIFFERENT'} to stepwise process_frame "
+          f"(poses, statuses, {len(ref.ba_costs)} BA costs); {pipe.fetch_count} fetches for "
+          f"{N_FRAMES} frames; frames/s over frames {warm}..{N_FRAMES - 1}: overlapped "
+          f"{fps_i:.2f}, stepwise process_frame {ref_fps:.2f} (same call); host ms waiting on "
+          f"the frame's fetch {fetch_ms[0] / N_FRAMES:.3f} a frame; the backend's graph "
+          f"replayed {pipe._captured.replays} times on its own stream [{SMI}]")
+    print(f"phase g overlap launches counted by the wrappers (the backend's replays not "
+          f"counted): overlapped {counts_i}, stepwise {ref_counts}")
+    # (ii)'s host syncs a frame: the row's fetch and the wait for the previous
+    # frame's CPU solve (its Correction is uploaded from the host); the
+    # packet's copy to the worker does not wait.
+    syncs_ii = (pipe2.fetch_count, pipe2.backend_waits, pipe2.handoff_count)
+    print(f"phase g overlap (ii), backend on the CPU (its step on a worker thread): statuses and "
+          f"keyframes {'equal' if same_ii else 'DIFFERENT'}, t within {dt:.2e} m of (i) (bound "
+          f"{G_OVERLAP_CPU_TOL}), ATE {err:.5f} m (bound {bound_m:.5f}), {fps_ii:.2f} frames/s; "
+          f"{syncs_ii[0]} row fetches, {syncs_ii[1]} waits on the previous frame's solve and "
+          f"{syncs_ii[2]} non-blocking packet copies for {N_FRAMES} frames [{SMI}]")
+    if not (same and pipe.fetch_count == N_FRAMES and pipe.backend_waits == 0
+            and pipe.handoff_count == 0):
+        fail("phase g overlap (i) is not bit-equal to stepwise process_frame, or fetched more "
+             "than once a frame")
+    if not (same_ii and dt <= G_OVERLAP_CPU_TOL and err < bound_m
+            and syncs_ii == (N_FRAMES, N_FRAMES - 1, N_FRAMES)):
+        fail("phase g overlap (ii) with the backend on the CPU left its bounds, or the host "
+             "synced more than the row's fetch and the previous solve's wait a frame")
+    return {"fps": fps_i, "stepwise_fps": ref_fps, "fetch_ms": fetch_ms[0] / N_FRAMES,
+            "cpu_fps": fps_ii, "launches": counts_i}
+
+
+def loop_store(lc) -> dict:
+    """A loop node's keyframe store on the host: frame ids, odometry poses,
+    ORB descriptors and their validity."""
+    n = lc.count
+    return {"frame_id": lc.kf_frame_id[:n].copy(), "q": lc.kf_q_odom[:n].cpu().numpy(),
+            "t": lc.kf_t_odom[:n].cpu().numpy(), "desc": lc.kf_desc[:n].cpu().numpy(),
+            "valid": lc.kf_kp_valid[:n].cpu().numpy()}
+
+
+def record_gates(lc, gates, batches=None) -> None:
+    """Record each gate of `lc` into `gates` as it is taken: for every query
+    k, the window [lo, hi), the scores of the database at that moment
+    (host) and the gate's candidate (None where it gates the query out);
+    with `batches`, each add_keyframes_batch's (q, t, frame_ids)."""
+    from flvis_tpu_torch.loop import bow, loop_closing
+
+    real_gate = lc.gate_candidates
+
+    def gate(ks):
+        pending = real_gate(ks)
+        if pending is not None:
+            _, ks_, los, his, rows = pending
+            valid = torch.arange(lc.bow_db.shape[0], device=lc.device) < lc.count
+            for k, lo, hi, row in zip(ks_, los, his, rows.cpu().numpy()):
+                sims = bow.score_database(lc.bow_db[k], lc.bow_db, valid)[:lc.count]
+                gates[k] = (lo, hi, sims.cpu().numpy(),
+                            loop_closing._gate_decision(row, lo, hi, lc.cfg))
+        return pending
+
+    lc.gate_candidates = gate
+    if batches is not None:
+        real_add = lc.add_keyframes_batch
+
+        def add(imgs_l, imgs_r, sel, q, t, frame_ids):
+            batches.append((np.array(q, np.float32), np.array(t, np.float32), list(frame_ids)))
+            return real_add(imgs_l, imgs_r, sel, q, t, frame_ids)
+
+        lc.add_keyframes_batch = add
+
+
+def g_headline(cfg, scfg, cam, device, loop_device=None, probe=None) -> dict:
+    """(b)'s sequence and chunks (HEADLINE_BOUNDS) through a captured
+    SlamSystem with IMU and loop, the loop node on loop_device: closures,
+    node statistics, host syncs of a chunk's step, loop-corrected ATE, the
+    loop store.  probe(loop_closer) is called before the first frame."""
+    from flvis_tpu_torch.geometry import se3
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    poses, imgs0, imgs1, frame_t, accs, gyros, imuts, path = loop_sequence(scfg)
+    slam = SlamSystem(cfg, cam, device=device, seed=0, T_i_c=se3.identity(device=device),
+                      use_imu=True, use_loop=True, loop_device=loop_device)
+    if probe is not None:
+        probe(slam.loop_closer)
+    syncs = {}
+    count_chunk_syncs(slam, 2, syncs)
+    reset_counts()
+    t0 = time.perf_counter()
+    b = HEADLINE_BOUNDS
+    for a, c in zip(b[:-1], b[1:]):
+        sl = slice(a, c)
+        slam.process_frames_vio(imgs0[sl], imgs1[sl], ts=frame_t[sl], imu_acc=accs[sl],
+                                imu_gyro=gyros[sl], imu_t=imuts[sl])
+    slam.flush_loop()
+    torch.cuda.synchronize()
+    lc = slam.loop_closer
+    C_gt = np.asarray([-R.T @ t for (R, t) in poses])
+    return {"closures": [(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures],
+            "stats": tuple(next(iter(slam._captured.values())).step.node_stats()),
+            "syncs": syncs["syncs"], "ate": ate(slam.trajectory_cam_centers(True), C_gt),
+            "bound": 0.02 * path + 0.01, "s": time.perf_counter() - t0,
+            "launches": read_counts(), "db": str(lc.bow_db.device), "store": loop_store(lc)}
+
+
+def descriptor_share(a, b) -> np.ndarray:
+    """Per keyframe, the share of store a's valid ORB descriptors that
+    store b holds for the same keyframe."""
+    out = []
+    for da, va, db_, vb in zip(a["desc"], a["valid"], b["desc"], b["valid"]):
+        sa = {r.tobytes() for r in da[va]}
+        sb = {r.tobytes() for r in db_[vb]}
+        out.append(len(sa & sb) / max(len(sa), 1))
+    return np.asarray(out)
+
+
+def g_gate_replay(cfg, scfg, cam, device, batches) -> dict:
+    """The loop node alone on the card (its kernels), fed the keyframes
+    `batches` recorded from a run — the same frames' images, odometry poses
+    and chunks: each query's gate as record_gates keeps it."""
+    from flvis_tpu_torch.loop.loop_closing import LoopCloser
+
+    _, imgs0, imgs1, *_ = loop_sequence(scfg)
+    lc = LoopCloser(cfg.loop, cam, device=device)
+    gates = {}
+    record_gates(lc, gates)
+    for q, t, fids in batches:
+        ks = lc.add_keyframes_batch(imgs0[fids], imgs1[fids], list(range(len(fids))), q, t,
+                                    fids)
+        lc.gate_candidates(ks)
+    return gates
+
+
+def g_loop_cpu(cfg, scfg, cam, device) -> dict:
+    """Step 2: (b) captured with loop_device="cpu" against (b)'s own run
+    (its closures, node statistics and loop store, left by main's phase b;
+    run here when phase g runs alone).  Where a closure takes another
+    candidate i, a witness: the CPU loop node's keyframes (frame ids,
+    odometry poses) bit-equal to (b)'s, its ORB descriptors mostly (b)'s
+    (wrong images would share none), and each such query a near-tie — the
+    card's gate, replayed on the same keyframes, and the CPU's gate each
+    prefer their own candidate by no more than the largest change of any
+    window score between the two."""
+    ref = g_reference(G_REF_B)
+    if ref is None:
+        r = g_headline(cfg, scfg, cam, device)
+        ref = {"closures": r["closures"], "stats": r["stats"], "store": r["store"]}
+    gates, batches = {}, []
+    got = g_headline(cfg, scfg, cam, device, loop_device="cpu",
+                     probe=lambda lc: record_gates(lc, gates, batches))
+    ij, ref_ij = [c[:2] for c in got["closures"]], [c[:2] for c in ref["closures"]]
+    other_i = [(a, b) for a, b in zip(ij, ref_ij) if a != b]
+    other_n = [(a, b) for a, b in zip(got["closures"], ref["closures"])
+               if a[:2] == b[:2] and a != b]
+    queries = [c[1] for c in ij] == [c[1] for c in ref_ij]
+    st, rst = got["store"], ref["store"]
+    same_kf = all(np.array_equal(st[k], rst[k]) for k in ("frame_id", "q", "t"))
+    share = descriptor_share(rst, st) if same_kf else np.zeros(1)
+    t0 = time.perf_counter()
+    card = g_gate_replay(cfg, scfg, cam, device, batches)
+    replay_s = time.perf_counter() - t0
+    replayed = (all(j in card and card[j][3] == i for i, j in ref_ij)
+                and all(j in gates and gates[j][3] == i for i, j in ij))
+    ties = []
+    for (i_cpu, j), (i_card, _) in other_i if replayed else ():
+        lo, hi, s_card, _ = card[j]
+        s_cpu = gates[j][2]
+        noise = float(np.abs(s_card[lo:hi] - s_cpu[lo:hi]).max())
+        ties.append((j, float(s_card[i_card] - s_card[i_cpu]), float(s_cpu[i_cpu] - s_cpu[i_card]),
+                     noise))
+    margins = [np.inf]
+    for i, j in ref_ij if replayed else ():
+        lo, hi, s_card, _ = card[j]
+        w = np.sort(s_card[lo:hi])
+        margins.append(float(w[-1] - w[-2]) if len(w) > 1 else np.inf)
+    near = replayed and all(0.0 <= m_card <= noise and 0.0 <= m_cpu <= noise
+               for _, m_card, m_cpu, noise in ties)
+    print(f"phase g loop node on the CPU under the captured system ({got['s']:.1f} s, the loop "
+          f"database on {got['db']}): {len(ij)} closures against (b)'s {len(ref_ij)}; the "
+          f"closing queries j {'equal' if queries else 'DIFFERENT'}; (i, j) equal on "
+          f"{len(ij) - len(other_i)}, another candidate i on {len(other_i)} {other_i[:4]}; "
+          f"n_inl differs on {len(other_n)} equal pairs {other_n[:4]}; node stats a replay "
+          f"{tuple(round(x, 3) for x in got['stats'])} vs (b)'s "
+          f"{tuple(round(x, 3) for x in ref['stats'])}; {got['syncs']} host syncs in a chunk's "
+          f"step; loop-corrected ATE {got['ate']:.5f} m (bound {got['bound']:.5f}); launches by "
+          f"the wrappers {got['launches']} [{SMI}]")
+    print(f"phase g loop node on the CPU, witness: {len(st['frame_id'])} keyframes, frame ids "
+          f"and odometry poses {'bit-equal' if same_kf else 'DIFFERENT'} to (b)'s; share of (b)'s "
+          f"ORB descriptors the CPU's keyframes hold: min {share.min():.3f}, median "
+          f"{np.median(share):.3f} (bound {G_DESC_SHARE}); the card's gate replayed on the CPU "
+          f"run's keyframes ({replay_s:.1f} s) gives (b)'s candidates, and the CPU run's gates "
+          f"its own: {'yes' if replayed else 'NO'}; the queries with another i (j, the card's "
+          f"margin for (b)'s i, the CPU's for its own, the largest window score change): "
+          f"{[tuple(round(x, 5) if isinstance(x, float) else x for x in t) for t in ties]}; "
+          f"the card's best-vs-runner-up margin over (b)'s closing queries: median "
+          f"{np.median(margins):.5f}, min {min(margins):.5f}")
+    if not (ij and len(ij) == len(ref_ij) and queries and got["stats"] == ref["stats"]
+            and got["syncs"] == 0 and got["ate"] < got["bound"]):
+        fail("phase g: the loop node on the CPU changed the closing queries, the graph or the "
+             "ATE")
+    if not (same_kf and share.min() >= G_DESC_SHARE and replayed and near):
+        fail("phase g: the loop node on the CPU took other keyframes, other images, or another "
+             "candidate where the scores are not a near-tie")
+    return {"closures": len(ij), "launches": got["launches"], "s": got["s"],
+            "other_i": len(other_i), "ties": ties}
+
+
+def _g_ba_rank() -> dict:
+    """Step 3 on each rank: optimize_sharded on the bench window, then
+    chunk_fused_sharded over (a)'s first G_CHUNK_FRAMES frames."""
+    import dataclasses
+
+    from flvis_tpu_torch import interop
+    from flvis_tpu_torch.backend import window_ba
+    from flvis_tpu_torch.frontend import tracker
+    from flvis_tpu_torch.parallel import dist_ba
+
+    mesh = dist_ba.make_lm_mesh()
+    dev = mesh.device
+    t_start = time.perf_counter()
+    cfg, scfg = system_config()
+    bcfg = dataclasses.replace(cfg.backend, pallas_schur=False)
+    cam = make_camera(scfg, dev)
+    reset_counts()
+    st = dist_ba.shard_window_state(mesh, bench_window(bcfg, cam, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses, lm, cost = dist_ba.optimize_sharded(bcfg, mesh, cam, st)
+    torch.cuda.synchronize()
+    opt_ms = 1000.0 * (time.perf_counter() - t0)
+    _, imgs0, imgs1, _ = orbit_frames(scfg)
+    n = G_CHUNK_FRAMES
+    t0 = time.perf_counter()
+    _, ba, _, (outs, costs) = dist_ba.chunk_fused_sharded(
+        cfg.frontend, bcfg, mesh, cam, tracker.init_state(cfg.frontend, device=dev),
+        dist_ba.shard_window_state(mesh, window_ba.empty(bcfg, device=dev)),
+        dist_ba.shard_correction(mesh, window_ba.null_correction(bcfg, device=dev)),
+        torch.as_tensor(imgs0[:n], device=dev), torch.as_tensor(imgs1[:n], device=dev),
+        generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    return {"device": str(dev), "backend": torch.distributed.get_backend(),
+            "q": poses.q.cpu().numpy(), "t": poses.t.cpu().numpy(), "lm": lm.cpu().numpy(),
+            "cost": cost.cpu().numpy(), "opt_ms": opt_ms,
+            "chunk_s": time.perf_counter() - t0, "outs": interop.to_numpy(outs),
+            "costs": costs.cpu().numpy(), "ba": interop.to_numpy(ba), "launches": read_counts(),
+            "s": time.perf_counter() - t_start}
+
+
+def g_sharded_ba(cfg, scfg, cam, device, ranks) -> dict:
+    """Step 3: the landmark-sharded window BA on G_RANKS ranks (`ranks`:
+    their _g_ba_rank readings) against the single-device path at
+    pallas_schur=False, within JAX's bounds; the ranks' replicated outputs
+    bit-equal."""
+    import dataclasses
+
+    from flvis_tpu_torch.backend import window_ba
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    bcfg = dataclasses.replace(cfg.backend, pallas_schur=False)
+    res = window_ba.optimize(bcfg, cam, bench_window(bcfg, cam, device))
+    live = res.state.lm_valid.cpu().numpy()
+    lm = np.concatenate([r["lm"] for r in ranks])
+    d_t = float(np.abs(ranks[0]["t"] - res.state.kf_t.cpu().numpy()).max())
+    d_lm = float(np.abs(lm[live] - res.state.lm_pw.cpu().numpy()[live]).max())
+    _, imgs0, imgs1, _ = orbit_frames(scfg)
+    n = G_CHUNK_FRAMES
+    slam = SlamSystem(cfg.replace(backend=bcfg), cam, device=device, seed=0)
+    use_eager_chunks(slam)
+    outs = slam.process_frames(imgs0[:n], imgs1[:n])
+    r0 = ranks[0]
+    same_status = (np.array_equal(r0["outs"]["status"], outs.status)
+                   and np.array_equal(r0["outs"]["is_keyframe"], outs.is_keyframe))
+    c_t = float(np.abs(r0["outs"]["T_c_w"]["t"] - outs.T_c_w.t).max())
+    ba = {k: np.concatenate([r["ba"][k] for r in ranks]) for k in ("lm_id", "lm_valid", "lm_pw")}
+    ref_ba = {k: getattr(slam.ba_state, k).cpu().numpy() for k in ("lm_id", "lm_valid", "lm_pw")}
+    got = dict(zip(ba["lm_id"][ba["lm_valid"]].tolist(), ba["lm_pw"][ba["lm_valid"]]))
+    ref = dict(zip(ref_ba["lm_id"][ref_ba["lm_valid"]].tolist(),
+                   ref_ba["lm_pw"][ref_ba["lm_valid"]]))
+    same_ids = set(got) == set(ref) and len(ref) > 0
+    c_lm = max((float(np.abs(got[i] - ref[i]).max()) for i in ref), default=np.inf) \
+        if same_ids else np.inf
+    replicated = all(np.array_equal(r[k], r0[k]) for r in ranks[1:] for k in ("q", "t", "cost",
+                                                                                "costs"))
+    replicated &= all(np.array_equal(r["outs"]["T_c_w"]["t"], r0["outs"]["T_c_w"]["t"])
+                      and np.array_equal(r["outs"]["status"], r0["outs"]["status"])
+                      for r in ranks[1:])
+    for r in ranks:
+        print(f"phase g sharded BA rank on {r['device']} (backend {r['backend']}): "
+              f"optimize_sharded {r['opt_ms']:.1f} ms, chunk_fused_sharded over {n} frames "
+              f"{r['chunk_s']:.2f} s; launches by its wrappers {r['launches']}")
+    print(f"phase g sharded BA, {G_RANKS} ranks sharing the card ({r0['s']:.1f} s a rank): "
+          f"optimize_sharded on the bench window (W={bcfg.window_size}, "
+          f"L={bcfg.max_landmarks}, {int(live.sum())} live, {bcfg.max_landmarks // G_RANKS} slots "
+          f"a rank) vs optimize at pallas_schur=False: t within {d_t:.2e} (bound {G_TOL_T}), "
+          f"landmarks within {d_lm:.2e} (bound {G_TOL_LM}); chunk_fused_sharded vs eager "
+          f"process_frames over {n} frames: statuses and keyframes "
+          f"{'equal' if same_status else 'DIFFERENT'}, t within {c_t:.2e}, landmark ids "
+          f"{'equal' if same_ids else 'DIFFERENT'} ({len(ref)}), positions within {c_lm:.2e}; "
+          f"replicated outputs of the ranks {'bit-equal' if replicated else 'DIFFERENT'} [{SMI}]")
+    if not (d_t <= G_TOL_T and d_lm <= G_TOL_LM and same_status and c_t <= G_TOL_T
+            and same_ids and c_lm <= G_TOL_LM and replicated):
+        fail("phase g: the landmark-sharded BA left its bounds or the ranks differ")
+    return {"opt_ms": [r["opt_ms"] for r in ranks], "launches": [r["launches"] for r in ranks]}
+
+
+def _g_multiseq_state(ms) -> dict:
+    from flvis_tpu_torch import interop
+
+    st = {k: [interop.to_numpy(x) for x in getattr(ms, k)] for k in ("fe", "ba", "corr", "vio")}
+    st["traj"] = [[(f, t, q.copy(), tt.copy()) for (f, t, q, tt) in tr]
+                  for tr in ms.trajectories]
+    st["closures"] = [[(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures]
+                      for lc in ms.loopers]
+    return st
+
+
+def g_same(a, b) -> bool:
+    """Nested records of host arrays equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(g_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(g_same(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _g_multiseq_run(device, mesh=None, ckpt=None) -> dict:
+    """(c)'s configuration (8 sequences, VIO, loop, ba_every=2, pipelined,
+    MS_CHUNKS chunks of MS_CHUNK frames), captured; with a mesh each rank
+    its block.  Returns per held sequence: packed rows, BA costs, closures
+    (i, j, n_inl); sequence-frames/s over chunks 1.. + flush (the ranks
+    timed between barriers); with `ckpt`, the checkpoint's round trip."""
+    from flvis_tpu_torch.parallel import mesh as mesh_m
+    from flvis_tpu_torch.parallel.multiseq_loop import MultiSeqSlam
+    from flvis_tpu_torch.utils import checkpoint
+
+    cfg, scfg = system_config()
+    cam = make_camera(scfg, device)
+    _, imgs0, imgs1, ts, imu, _ = multiseq_sequence(scfg)
+    ms = MultiSeqSlam(multiseq_config(cfg), cam, num_seqs=MS_SEQS, use_imu=True, use_loop=True,
+                      ba_every=2, pipelined=True, device=device, mesh=mesh)
+    reset_counts()
+    rets, t0, t_run = [], 0.0, time.perf_counter()
+    for k in range(MS_CHUNKS):
+        if k == 1:
+            torch.cuda.synchronize()
+            if mesh is not None:
+                mesh_m.barrier(mesh)
+            t0 = time.perf_counter()
+        sl = slice(k * MS_CHUNK, (k + 1) * MS_CHUNK)
+        rets.append(ms.process_chunk_vio(imgs0[:, sl], imgs1[:, sl], ts[:, sl], *imu[k]))
+    rets.append(ms.flush())
+    torch.cuda.synchronize()
+    if mesh is not None:
+        mesh_m.barrier(mesh)
+    wall = time.perf_counter() - t0
+    out = {"seqs": list(ms.seqs), "s": time.perf_counter() - t_run,
+           "packed": np.concatenate([r for r in rets if r is not None], 1),
+           "costs": [np.asarray(c) for c in ms.ba_costs],
+           "closures": [[(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures]
+                        for lc in ms.loopers],
+           "fps": MS_SEQS * (MS_CHUNKS - 1) * MS_CHUNK / wall, "launches": read_counts(),
+           "graph": tuple(next(iter(ms._captured.values())).step.node_stats())
+           if ms._captured else ()}
+    if ckpt is not None:
+        t1 = time.perf_counter()
+        checkpoint.save_multiseq(ckpt, ms)
+        ms2 = MultiSeqSlam(multiseq_config(cfg), cam, num_seqs=MS_SEQS, use_imu=True,
+                           use_loop=True, ba_every=2, pipelined=True, device=device, mesh=mesh)
+        checkpoint.load_multiseq(ckpt, ms2)
+        out["round_trip"] = g_same(_g_multiseq_state(ms2), _g_multiseq_state(ms))
+        out["ckpt_s"] = time.perf_counter() - t1
+    return out
+
+
+def g_multiseq(ref, ranks) -> dict:
+    """Step 4: MultiSeqSlam over G_RANKS ranks × MS_SEQS / G_RANKS
+    sequences (each rank one captured graph of its block's branches;
+    `ranks`: their _g_multiseq_run readings) against the one-process
+    MS_SEQS-sequence captured run `ref` (phase c's, or _g_multiseq_run's),
+    per sequence bit for bit; the meshed checkpoint's round trip."""
+    same = True
+    for r in ranks:
+        b = slice(r["seqs"][0], r["seqs"][-1] + 1)
+        same &= (np.array_equal(r["packed"], ref["packed"][b])
+                 and all(np.array_equal(x, y) for x, y in zip(r["costs"], ref["costs"][b]))
+                 and r["closures"] == ref["closures"][b])
+    n_closures = sum(len(c) for r in ranks for c in r["closures"])
+    print(f"phase g MultiSeqSlam over {G_RANKS} ranks x {MS_SEQS // G_RANKS} sequences sharing "
+          f"the card ({ranks[0]['s']:.1f} s a rank): per sequence packed outputs, BA costs and "
+          f"{n_closures} closures {'bit-equal' if same else 'DIFFERENT'} to the one-process "
+          f"{MS_SEQS}-sequence captured run; {ranks[0]['fps']:.2f} sequence-frames/s of the "
+          f"{G_RANKS} ranks together over chunks 1..{MS_CHUNKS - 1} + flush; a rank's replay "
+          f"{tuple(round(x, 2) for x in ranks[0]['graph'])} (kernel nodes, IF bodies, WHILE "
+          f"iterations); checkpoint round trip "
+          f"{'bit-equal' if all(r['round_trip'] for r in ranks) else 'DIFFERENT'} "
+          f"({ranks[0]['ckpt_s']:.1f} s); launches by the wrappers a rank "
+          f"{[r['launches'] for r in ranks]} [{SMI}]")
+    if not (same and n_closures and all(r["round_trip"] for r in ranks)):
+        fail("phase g: MultiSeqSlam over ranks differs from the one-process run, or its "
+             "checkpoint does not round-trip")
+    return {"fps": ranks[0]["fps"], "launches": [r["launches"] for r in ranks]}
+
+
+def g_long_head(device, mesh=None) -> dict:
+    """(d)'s first PGO_CPU_KF keyframes through a card LoopCloser (with a
+    mesh, its database split over the ranks): closures, node poses, and
+    each PGO call's graph solved again unsharded (the largest node
+    difference); with a mesh the last keyframes' sharded scores against
+    the unsharded ones on the gathered database."""
+    from flvis_tpu_torch.loop import bow, loop_closing, pose_graph
+    from flvis_tpu_torch.parallel import dist_loop
+
+    cfg, cam, renders, keys, _, odo_t = long_run_inputs(device)
+    lc = loop_closing.LoopCloser(cfg, cam, device=device, mesh=mesh)
+    timer = StageTimer()
+    pgo = record_pgo_routes(timer)
+    # Synced seconds by stage: ingest, gate and verification (within it,
+    # with a mesh, the sharded scores of each query and the bucket-of-one
+    # verifications), PGO.
+    stages = {k: [0.0, 0] for k in ("ingest", "detect", "scores", "verify", "pgo")}
+
+    def timed(obj, name, key):
+        real = getattr(obj, name)
+
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            stages[key][0] += time.perf_counter() - t
+            stages[key][1] += 1
+            return out
+
+        setattr(obj, name, call)
+        return real
+
+    real_scores = timed(dist_loop, "score_database_sharded", "scores")
+    timed(lc, "_verify", "verify")
+    for name, key in (("add_keyframes_batch", "ingest"), ("detect_loops_batch", "detect"),
+                      ("optimize_graph", "pgo")):
+        timed(lc, name, key)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        for c0 in range(0, PGO_CPU_KF, LONG_CHUNK):
+            ks_range = list(range(c0, min(c0 + LONG_CHUNK, PGO_CPU_KF)))
+            il = np.stack([renders[keys[k]][0] for k in ks_range]).astype(np.float32)
+            ir = np.stack([renders[keys[k]][1] for k in ks_range]).astype(np.float32)
+            q = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (len(il), 1))
+            ks = lc.add_keyframes_batch(il, ir, list(range(len(il))), q, odo_t[ks_range],
+                                        ks_range)
+            if lc.detect_loops_batch(ks):
+                lc.optimize_graph()
+        torch.cuda.synchronize()
+    finally:
+        dist_loop.score_database_sharded = real_scores
+    s = time.perf_counter() - t0
+    timer.restore()
+    again = []
+    for route, cs in pgo.items():
+        fn = pose_graph.optimize if route == "dense" else pose_graph.optimize_banded
+        for c in cs:
+            graph, fixed, kw = c["args"]
+            g2, _ = fn(graph, fixed, **kw)
+            again.append(float((g2.node_t - c["out"][0].node_t)[graph.node_valid].abs().max()))
+    out = {"closures": [(c.kf_i, c.kf_j, c.num_inliers) for c in lc.closures],
+           "kf_t": lc.kf_t[:PGO_CPU_KF].cpu().numpy(), "kf_q": lc.kf_q[:PGO_CPU_KF].cpu().numpy(),
+           "pgo_again": max(again, default=0.0), "pgo_calls": len(again), "s": s,
+           "launches": read_counts(), "stages": stages}
+    if mesh is not None:
+        db = lc._whole_db()
+        own = dist_loop.row_range(mesh, lc.bow_db)
+        valid = torch.arange(own.start, own.stop, device=device) < lc.count
+        out["score_err"] = max(float((dist_loop.score_database_sharded(
+            mesh, dist_loop.get_row(mesh, lc.bow_db, k), lc.bow_db, valid)
+            - bow.score_database(db[k], db, torch.arange(db.shape[0], device=device) < lc.count))
+            .abs().max()) for k in range(lc.count - 4, lc.count))
+        out["rows"] = (lc.bow_db.shape[0], lc.capacity)
+    return out
+
+
+def g_sharded_db(ref, ranks) -> dict:
+    """Step 5: (d)'s first PGO_CPU_KF keyframes through LoopCloser(mesh=)
+    on G_RANKS ranks (`ranks`: their g_long_head readings) against the
+    unsharded run `ref` at that count: the same closures (i, j), each PGO
+    solve within G_PGO_TOL of the unsharded solve of its graph, the ranks'
+    closures and poses bit-equal, the sharded scores within G_SCORE_TOL of
+    the unsharded ones."""
+    r0 = ranks[0]
+    ij = [c[:2] for c in r0["closures"]]
+    diff = [(a, b) for a, b in zip(r0["closures"], ref["closures"]) if a != b]
+    d_t = float(np.abs(r0["kf_t"] - ref["kf_t"]).max())
+    replicated = all(r["closures"] == r0["closures"] and np.array_equal(r["kf_t"], r0["kf_t"])
+                     and np.array_equal(r["kf_q"], r0["kf_q"]) for r in ranks[1:])
+    pgo = max(r["pgo_again"] for r in ranks)
+    score = max(r["score_err"] for r in ranks)
+    def stage_s(r):
+        return ", ".join(f"{k} {v[0]:.2f} s ({v[1]} calls)" for k, v in r["stages"].items()
+                         if v[1])
+
+    print(f"phase g keyframe-sharded database, synced seconds by stage: a rank {stage_s(r0)}; "
+          f"the unsharded run {stage_s(ref)}")
+    print(f"phase g keyframe-sharded database, {G_RANKS} ranks sharing the card, {PGO_CPU_KF} "
+          f"keyframes of (d) (a rank's run {r0['s']:.1f} s against the unsharded "
+          f"{ref['s']:.1f} s; database rows a rank "
+          f"{r0['rows'][0]} of {r0['rows'][1]}): {len(ij)} closures, (i, j) "
+          f"{'equal' if ij == [c[:2] for c in ref['closures']] else 'DIFFERENT'} to the "
+          f"unsharded run's {len(ref['closures'])}, n_inl differs on {len(diff)} {diff[:4]}; "
+          f"node poses within {d_t:.2e} m of it; each of the {r0['pgo_calls']} PGO solves "
+          f"within {pgo:.2e} m of its graph's unsharded solve (bound {G_PGO_TOL}); ranks' "
+          f"closures and poses {'bit-equal' if replicated else 'DIFFERENT'}; sharded scores "
+          f"within {score:.2e} of the unsharded (bound {G_SCORE_TOL}); launches by the "
+          f"wrappers a rank {[r['launches'] for r in ranks]} [{SMI}]")
+    if not (ij == [c[:2] for c in ref["closures"]] and ij and pgo <= G_PGO_TOL and replicated
+            and score <= G_SCORE_TOL):
+        fail("phase g: the keyframe-sharded database changed the closures or the poses")
+    return {"closures": len(ij), "launches": [r["launches"] for r in ranks],
+            "s": r0["s"], "unsharded_s": ref["s"]}
+
+
+def phase_g() -> int:
+    """--phase-g: the multi-device paths in a process of their own, their
+    ranks in processes of their own (G_RANKS sharing the one card through a
+    gloo group; torch.profiler is not used here); the last line of output is
+    a JSON object of its readings."""
+    from flvis_tpu_torch import entry as port_entry
+    from flvis_tpu_torch.ops.kernels import _build
+
+    global SMI
+    SMI = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    device = torch.device("cuda", 0)
+    _build.load_library()               # built before any rank starts
+    import tempfile
+
+    from flvis_tpu_torch.parallel import multihost
+
+    cfg, scfg = system_config()
+    cam = make_camera(scfg, device)
+    out, refs = {}, {}
+
+    def rank_steps():
+        # Steps 3-5 in one spawn of G_RANKS ranks (one processes' start):
+        # their references first, on the card alone.
+        refs["multiseq"] = g_reference(G_REF_C) or _g_multiseq_run(device)
+        refs["db"] = g_long_head(device)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            return multihost.spawn(_g_rank, G_RANKS, (str(Path(d) / "ms.npz"),),
+                                   device_type="cuda")
+
+    steps = (("overlap", lambda: g_overlap(cfg, scfg, cam, device)),
+             ("loop_cpu", lambda: g_loop_cpu(cfg, scfg, cam, device)),
+             ("ranks", rank_steps),
+             ("sharded_ba", lambda: g_sharded_ba(cfg, scfg, cam, device,
+                                                 [r["ba"] for r in out["ranks"]])),
+             ("multiseq", lambda: g_multiseq(refs["multiseq"],
+                                             [r["multiseq"] for r in out["ranks"]])),
+             ("sharded_db", lambda: g_sharded_db(refs["db"], [r["db"] for r in out["ranks"]])),
+             ("dryrun", lambda: len(port_entry.dryrun_multichip(G_RANKS))))
+    for name, step in steps:
+        t0 = time.perf_counter()
+        out[name] = step()
+        print(f"phase g {name}: {time.perf_counter() - t0:.1f} s")
+    out.pop("ranks")
+    print(json.dumps(out, default=str))
+    return 0
+
+
+def _g_rank(ckpt) -> dict:
+    """Steps 3-5 on each of the G_RANKS ranks: the landmark-sharded BA, (c)
+    over the ranks with its checkpoint, the keyframe-sharded database."""
+    from flvis_tpu_torch.parallel import dist_loop, multiseq
+
+    ba = _g_ba_rank()
+    mesh = multiseq.make_mesh()
+    ms = {"device": str(mesh.device), **_g_multiseq_run(mesh.device, mesh, ckpt)}
+    kf = dist_loop.make_kf_mesh()
+    return {"ba": ba, "multiseq": ms, "db": {"device": str(kf.device),
+                                            **g_long_head(kf.device, kf)}}
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--phase-of"] and len(args) == 3 and args[2] in ("b", "c"):
@@ -3353,9 +4052,11 @@ def main() -> int:
         return phase_c()
     if args in (["--phase-de"], ["--phase-f"]):
         return phase_de(only_f=args == ["--phase-f"])
+    if args == ["--phase-g"]:
+        return phase_g()
     if args and not (args[:1] == ["--parent"] and len(args) == 2 or args == ["--mma-rates"]):
         print("usage: python3 chip_smoke.py [--parent DIR | --mma-rates | --phase-c | --phase-de "
-              "| --phase-f]", file=sys.stderr)
+              "| --phase-f | --phase-g]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA GPU",
@@ -3436,6 +4137,8 @@ def main() -> int:
           f"{len(head_e['closures'])} closures, ATE {head_r['ate']} / {head_e['ate']}")
     if not same:
         fail("headline: the captured and the eager run closed other loops or another ATE")
+    g_keep(G_REF_B, {"closures": head_r["lc_closures"], "stats": head_r["node_stats"],
+                     "store": head_r["store"]})
     print(f"phase b, headline, captured and eager: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ms_r = run_own_process("--phase-c")
@@ -3443,7 +4146,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     de = run_own_process("--phase-de")
-    print(f"phases e and d, RGB-D and the long run (their own process): "
+    print(f"phases e, d and f, RGB-D, the long run and the surfaces (their own process): "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g_r = run_own_process("--phase-g")
+    print(f"phase g, the multi-device paths (their own processes): "
           f"{time.perf_counter() - t0:.1f} s")
     for ph, r, e in (("a", slice_r, slice_e), ("b", head_r, head_e)):
         g = next(iter(r["graph"].values()))
@@ -3471,6 +4178,11 @@ def main() -> int:
           f"{de['e']}; in phase d (the long run): {de['d']['launches']}, "
           f"{de['d']['banded_calls']} banded PGO calls; in phase f (the resumed eager run, "
           f"frames {RESUME_AT}..{LOOP_FRAMES - 1}, by its wrappers): {de['f']['launches']}")
+    print(f"launches in phase g, by the wrappers (the captured steps' replays not counted): "
+          f"overlap (i) {g_r['overlap']['launches']}; loop node on the CPU "
+          f"{g_r['loop_cpu']['launches']}; sharded BA a rank {g_r['sharded_ba']['launches']}; "
+          f"MultiSeqSlam a rank {g_r['multiseq']['launches']}; sharded database a rank "
+          f"{g_r['sharded_db']['launches']}")
     print(json.dumps({"kernels": table}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.0f} s in all")
     print(smi)

@@ -19,6 +19,17 @@ eagerly one host read of the predicate a step, an early exit; inside a
 captured frame step one WHILE node whatever the iteration count, so a
 converged loop runs no more steps and no host read decides anything.  The
 backend reset is a device select (`reset_if`).
+
+Landmark-sharded windows (`mesh=`, a parallel/mesh.Mesh on the `lm` axis;
+the reference's `axis_name`, window_ba.py:151-186,389-410,443-465,496):
+each rank holds a contiguous block of the landmark slots and observation
+columns and every pose; `add_keyframe` allocates only the packet landmarks
+the rank owns (lm_id mod n = rank); the LM loops psum their costs, so every
+rank takes the same steps (eagerly, each predicate read once a step); and
+each step is schur_step_plain with the pose system's four partial sums
+psum-reduced before the solve.  The schur_step kernel stays off under a
+mesh, as the reference keeps its XLA step under an axis_name: the psum
+points fall inside the step, which the kernel runs whole.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from ..geometry import se3 as se3m, so3
 from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..ops.kernels import schur
+from ..parallel import mesh as mesh_m
 from ..utils import control
 from ..frontend.landmark_table import free_slot_order, scatter_rows
 
@@ -96,9 +108,7 @@ class Correction(NamedTuple):
     valid: torch.Tensor       # bool — window ready and optimized
 
 
-def null_correction(cfg: BackendConfig, *, device, dtype=torch.float32) -> Correction:
-    """A valid=False Correction of the backend's shapes."""
-    l = cfg.max_landmarks
+def _null_correction(l: int, device, dtype) -> Correction:
     return Correction(
         frame_id=torch.full((), -1, dtype=torch.int32, device=device),
         q=so3.identity((), dtype, device),
@@ -109,6 +119,16 @@ def null_correction(cfg: BackendConfig, *, device, dtype=torch.float32) -> Corre
         outlier_id=torch.full((l,), -1, dtype=torch.int32, device=device),
         outlier_mask=torch.zeros(l, dtype=torch.bool, device=device),
         valid=torch.zeros((), dtype=torch.bool, device=device))
+
+
+def null_correction(cfg: BackendConfig, *, device, dtype=torch.float32) -> Correction:
+    """A valid=False Correction of the backend's shapes."""
+    return _null_correction(cfg.max_landmarks, device, dtype)
+
+
+def null_correction_like(state: WindowState, dtype=torch.float32) -> Correction:
+    """null_correction sized to `state` (a landmark-sharded window's rows)."""
+    return _null_correction(state.capacity, state.lm_pw.device, dtype)
 
 
 def _empty(w: int, l: int, device, dtype) -> WindowState:
@@ -158,10 +178,13 @@ def _set_row(a, i, v):
     return a.index_copy(0, i.reshape(1).long(), v.reshape((1,) + a.shape[1:]).to(a.dtype))
 
 
-def add_keyframe(cfg: BackendConfig, state: WindowState, kf: KeyframePacket) -> WindowState:
+def add_keyframe(cfg: BackendConfig, state: WindowState, kf: KeyframePacket,
+                 mesh=None) -> WindowState:
     """Ring-insert a keyframe (overwriting the oldest slot), merge its
     landmark observations by id, allocate slots for new ids, and free the
-    landmarks the slide orphaned."""
+    landmarks the slide orphaned.  With `mesh` (the landmark axis sharded,
+    every rank holding the same packet) a rank allocates only the landmarks
+    it owns, lm_id mod n = rank, so each lands on exactly one rank."""
     w = state.window
     L = state.capacity
     slot = state.head
@@ -182,6 +205,8 @@ def add_keyframe(cfg: BackendConfig, state: WindowState, kf: KeyframePacket) -> 
     has_match = torch.any(eq, dim=1)
 
     need = kf.lm_mask & ~has_match
+    if mesh is not None:
+        need = need & (kf.lm_id % mesh_m.axis_size(mesh) == mesh_m.axis_index(mesh))
     free_slots = free_slot_order(state.lm_valid)
     need_rank = torch.cumsum(need.to(torch.int64), 0) - 1
     num_free = torch.sum(~state.lm_valid)
@@ -255,30 +280,38 @@ def _use_schur_kernel(cfg: BackendConfig, device) -> bool:
             and cfg.window_size <= schur.MAX_WINDOW)
 
 
-def _schur_step(poses: SE3, lm_pw, consts, lam, delta, use_kernel: bool = False):
+def _schur_step(poses: SE3, lm_pw, consts, lam, delta, use_kernel: bool = False,
+                reduce=None):
     """One damped Schur LM step — the schur_step kernel if `use_kernel`,
-    else schur_step_plain on whatever device the window is — with
-    `consts` = _schur_consts(...) of the window.  Returns (new_poses,
-    new_lm_pw)."""
+    else schur_step_plain on whatever device the window is, its pose
+    system summed by `reduce` when given — with `consts` =
+    _schur_consts(...) of the window.  Returns (new_poses, new_lm_pw)."""
     obs3, urv, wm, fixed, cam_row = consts
     W = wm.shape[0]
     R = so3.to_matrix(poses.q).reshape(W, 9).contiguous()
-    step = schur.schur_step_kernel if use_kernel else schur.schur_step_plain
-    dp, dl = step(R, poses.t.contiguous(), lm_pw.T.contiguous(), obs3, urv, wm, fixed,
-                  cam_row, lam.to(torch.float32), float(delta))
+    args = (R, poses.t.contiguous(), lm_pw.T.contiguous(), obs3, urv, wm, fixed, cam_row,
+            lam.to(torch.float32), float(delta))
+    if use_kernel:
+        dp, dl = schur.schur_step_kernel(*args)
+    else:
+        dp, dl = schur.schur_step_plain(*args, reduce=reduce)
     return se3m.retract_left(poses, dp), lm_pw + dl.T
 
 
 def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta,
-             use_kernel: bool = False):
+             use_kernel: bool = False, mesh=None):
     obs_uv, obs_ur, ur_valid = obs
     consts = _schur_consts(cam, obs, w_mask, fixed_pose)
+    reduce = None if mesh is None else (lambda x: mesh_m.psum(mesh, x))
+
+    def total(c):
+        return c if reduce is None else reduce(c)
 
     def body(carry):
         it, poses, lm_pw, lam, cost, _ = carry
-        new_poses, new_lm = _schur_step(poses, lm_pw, consts, lam, delta, use_kernel)
-        new_cost = _total_cost(_residuals(cam, new_poses, new_lm, obs_uv, obs_ur,
-                                          ur_valid), w_mask, delta)
+        new_poses, new_lm = _schur_step(poses, lm_pw, consts, lam, delta, use_kernel, reduce)
+        new_cost = total(_total_cost(_residuals(cam, new_poses, new_lm, obs_uv, obs_ur,
+                                                ur_valid), w_mask, delta))
         better = new_cost < cost
         # Converged: an accepted step improved the cost by < 1e-5 relative.
         done = better & (cost - new_cost < 1e-5 * cost)
@@ -291,8 +324,8 @@ def _lm_loop(cam, poses, lm_pw, obs, w_mask, fixed_pose, iters: int, delta,
     def pred(carry):
         return (carry[0] < iters) & ~carry[5]
 
-    cost = _total_cost(_residuals(cam, poses, lm_pw, obs_uv, obs_ur, ur_valid), w_mask,
-                       delta)
+    cost = total(_total_cost(_residuals(cam, poses, lm_pw, obs_uv, obs_ur, ur_valid), w_mask,
+                             delta))
     dev = cost.device
     carry = (torch.zeros((), dtype=torch.int32, device=dev), poses, lm_pw,
              torch.full((), 1e-4, dtype=cost.dtype, device=dev), cost,
@@ -308,15 +341,18 @@ class BAResult(NamedTuple):
     num_obs: torch.Tensor
 
 
-def optimize(cfg: BackendConfig, cam: StereoCamera, state: WindowState) -> BAResult:
+def optimize(cfg: BackendConfig, cam: StereoCamera, state: WindowState,
+             mesh=None) -> BAResult:
     """Two-phase windowed BA and its Correction.  Like the reference, the
     solve always runs but its result is kept only once the window holds
-    ≥ 3 keyframes (Correction.valid)."""
+    ≥ 3 keyframes (Correction.valid).  With `mesh` (landmark-sharded, see
+    the module note) the Correction's landmark arrays are the rank's rows
+    (all_gather them for a replicated consumer)."""
     poses = state.poses()
     w_mask = state.obs_valid & state.kf_valid[:, None] & state.lm_valid[None, :]
     dev = state.lm_pw.device
-    use_kernel = _use_schur_kernel(cfg, dev)
-    if dev.type == "cuda" and cfg.pallas_schur and not use_kernel:
+    use_kernel = mesh is None and _use_schur_kernel(cfg, dev)
+    if mesh is None and dev.type == "cuda" and cfg.pallas_schur and not use_kernel:
         warnings.warn(
             f"window_size={cfg.window_size} > {schur.MAX_WINDOW}: the schur_step CUDA "
             f"kernel only supports windows of <= {schur.MAX_WINDOW} poses; taking the "
@@ -328,12 +364,12 @@ def optimize(cfg: BackendConfig, cam: StereoCamera, state: WindowState) -> BARes
 
     obs = (state.obs_uv, state.obs_ur, state.obs_ur_valid & w_mask)
     poses1, lm1, _ = _lm_loop(cam, poses, state.lm_pw, obs, w_mask, fixed_pose,
-                              cfg.iters1, cfg.huber_delta, use_kernel)
+                              cfg.iters1, cfg.huber_delta, use_kernel, mesh)
     r1 = _residuals(cam, poses1, lm1, *obs)
     w_mask2 = w_mask & (torch.sum(r1 * r1, dim=1) < cfg.chi2_cull)
     obs2 = (state.obs_uv, state.obs_ur, state.obs_ur_valid & w_mask2)
     poses2, lm2, cost = _lm_loop(cam, poses1, lm1, obs2, w_mask2, fixed_pose,
-                                 cfg.iters2, cfg.huber_delta, use_kernel)
+                                 cfg.iters2, cfg.huber_delta, use_kernel, mesh)
 
     ready = state.count >= 3
     poses_out = se3m.where(ready, poses2, poses)

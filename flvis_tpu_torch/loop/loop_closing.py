@@ -34,9 +34,18 @@ host copies of the keyframes' left images.  pgo_device: the PGO solve on
 another device (a caller's explicit choice), the poses coming back to the
 pose tables' device.
 
+mesh: the BoW database split by rows over the ranks of a `kf` mesh axis
+(parallel/dist_loop; the reference's LoopCloser(mesh=)).  Every rank runs
+the same loop node — the same store, ingest, verification and PGO — and
+keeps only its block of database rows: a row is written by its owner, a
+query's scores come back all-gathered, and the candidate gate runs
+synchronously per query (`_detect_sharded`, verification a bucket of one),
+so the gate handle is ("sync", ks) and dispatch_verify returns ("done",
+closures) at once; the caller then runs optimize_graph.  The ranks' scores,
+closures and loop poses are the same bits.  device: the loop node's own
+device (SlamSystem(loop_device=) puts it beside the frontend's).
+
 Differences from the reference, by design:
-  - Not ported: the mesh-sharded database and the loop node on a device
-    of its own (SlamSystem(loop_device=)).
   - Ingest without shape padding: the reference pads its ingest to blocks
     of {32, 8, 4} keyframes to keep XLA shapes stable, then drops the
     padded rows; the port ingests and transforms only the real rows, with
@@ -67,6 +76,7 @@ from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..ops import image as imops, orb, pnp, stereo
 from ..ops.kernels import hamming
+from ..parallel import dist_loop, mesh as mesh_m
 from ..utils.tree import tree_map
 from . import bow, pose_graph
 
@@ -169,14 +179,22 @@ class _PoseView:
 
 class LoopCloser:
     """Keyframe database + loop detection + pose-graph correction, on one
-    device (default "cuda").  With depth_mode, the second image of every
-    keyframe is an aligned depth image (RGB-D), not the right stereo
-    image."""
+    device (default "cuda"; with `mesh`, the mesh's).  With depth_mode, the
+    second image of every keyframe is an aligned depth image (RGB-D), not
+    the right stereo image.  mesh: a parallel/mesh.Mesh on the `kf` axis,
+    the database split over its ranks (module note); cfg.max_keyframes must
+    divide by its size."""
 
     def __init__(self, cfg: LoopConfig, cam: StereoCamera,
                  vocab: Optional[bow.Vocabulary] = None, device="cuda",
-                 depth_mode: bool = False, pgo_device=None, dump_dir: Optional[str] = None):
+                 depth_mode: bool = False, pgo_device=None, dump_dir: Optional[str] = None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+        # The camera's intrinsics on the loop node's device.
+        cam = tree_map(lambda a: a.to(device), cam)
         self.cam = cam
         self.depth_mode = depth_mode
         # The verification's PnP inlier threshold, 3 px in normalised units,
@@ -196,7 +214,10 @@ class LoopCloser:
         # images: without dump_dir nothing image-sized is read to the host.
         self._kf_imgs: Optional[list] = [] if dump_dir is not None else None
         K, F, V = cfg.max_keyframes, cfg.num_orb_features, cfg.vocab_words
-        self.bow_db = torch.zeros((K, V), device=dev)
+        # With a mesh, only the rank's block of rows (dist_loop.shard_db).
+        self.bow_db = torch.zeros((K // (mesh.size if mesh is not None else 1), V), device=dev)
+        if mesh is not None and K % mesh.size:
+            raise ValueError(f"max_keyframes={K} does not split over {mesh.size} ranks")
         self.kf_uv = torch.zeros((K, F, 2), device=dev)
         self.kf_desc = torch.zeros((K, F, 8), dtype=torch.int32, device=dev)
         self.kf_kp_valid = torch.zeros((K, F), dtype=torch.bool, device=dev)
@@ -261,7 +282,7 @@ class LoopCloser:
         store rows, poses and, once a vocabulary exists, its BoW row.
         Returns its keyframe index."""
         k = self.count
-        if k >= self.bow_db.shape[0]:
+        if k >= self.capacity:
             self._grow()
         desc, kp_valid = self._ingest_row(k, self._as_device(img_l), self._as_device(img_r))
         self.kf_frame_id[k] = frame_id
@@ -271,7 +292,11 @@ class LoopCloser:
             if k + 1 >= 8:
                 self._train_vocab()
         if self.vocab is not None:
-            self.bow_db[k] = bow.transform(self.vocab, desc, kp_valid)
+            row = bow.transform(self.vocab, desc, kp_valid)
+            if self.mesh is not None:
+                dist_loop.set_row(self.mesh, self.bow_db, k, row)
+            else:
+                self.bow_db[k] = row
         self.count += 1
         self._maybe_refresh_vocab()
         if self._kf_imgs is not None:
@@ -295,7 +320,7 @@ class LoopCloser:
         M = len(sel)
         if M == 0:
             return []
-        while self.count + M > self.bow_db.shape[0]:
+        while self.count + M > self.capacity:
             self._grow()
         imgs_l, imgs_r = self._as_device(imgs_l), self._as_device(imgs_r)
         c0 = self.count
@@ -326,7 +351,7 @@ class LoopCloser:
         n = self.count
         if self.vocab is None or n == 0:
             return np.zeros((n, n), np.float32)
-        db = self.bow_db[:n]
+        db = self._whole_db()[:n]
         rows = max(1, (1 << 26) // (n * db.shape[1]))     # ≤ 256 MiB of differences a block
         S = torch.cat([1.0 - 0.5 * torch.sum(torch.abs(db[None, :, :] - db[r:r + rows, None, :]),
                                              dim=2)
@@ -370,9 +395,22 @@ class LoopCloser:
                                       good.cpu().numpy())
         overlay.save_png(f"{self.dump_dir}/loop_match_{i:05d}_{j:05d}.png", img)
 
+    @property
+    def capacity(self) -> int:
+        """Keyframe rows of every table (the database's, over all ranks)."""
+        return self.kf_q.shape[0]
+
+    def _whole_db(self):
+        """The (capacity, V) database: with a mesh, all-gathered from the
+        ranks' blocks (a collective)."""
+        if self.mesh is None:
+            return self.bow_db
+        return mesh_m.all_gather(self.mesh, self.bow_db)
+
     def _grow(self) -> None:
-        """Double the keyframe capacity of every table."""
-        K = self.bow_db.shape[0]
+        """Double the keyframe capacity of every table (with a mesh, the
+        database gathered, doubled and split again: a rank's block moves)."""
+        K = self.capacity
 
         def zpad(a):
             return torch.cat([a, torch.zeros_like(a)])
@@ -380,7 +418,8 @@ class LoopCloser:
         def qpad(a):
             return torch.cat([a, so3.identity((K,), a.dtype, a.device)])
 
-        self.bow_db = zpad(self.bow_db)
+        db = zpad(self._whole_db())
+        self.bow_db = db if self.mesh is None else dist_loop.shard_rows(self.mesh, db)
         self.kf_uv, self.kf_desc = zpad(self.kf_uv), zpad(self.kf_desc)
         self.kf_kp_valid, self.kf_pc = zpad(self.kf_kp_valid), zpad(self.kf_pc)
         self.kf_pc_valid = zpad(self.kf_pc_valid)
@@ -390,9 +429,17 @@ class LoopCloser:
 
     def _set_db_rows(self, r0: int, r1: int) -> None:
         """BoW rows [r0, r1) from their stored descriptors, in one
-        transform_rows (the reference's _bow_rows)."""
-        self.bow_db[r0:r1] = bow.transform_rows(self.vocab, self.kf_desc[r0:r1],
-                                                self.kf_kp_valid[r0:r1])
+        transform_rows (the reference's _bow_rows).  With a mesh each rank
+        makes and writes only the rows it owns (the reference's per-row
+        sharded set_row)."""
+        o = 0
+        if self.mesh is not None:
+            own = dist_loop.row_range(self.mesh, self.bow_db)
+            r0, r1, o = max(r0, own.start), min(r1, own.stop), own.start
+            if r0 >= r1:
+                return
+        self.bow_db[r0 - o:r1 - o] = bow.transform_rows(self.vocab, self.kf_desc[r0:r1],
+                                                        self.kf_kp_valid[r0:r1])
 
     def _train_vocab(self):
         """Train the vocabulary from the buffered keyframes once they hold at
@@ -445,6 +492,10 @@ class LoopCloser:
         ks = [k for k in ks if k >= cfg.kf_start]
         if self.vocab is None or not ks:
             return None
+        if self.mesh is not None:
+            # The sharded database's per-query gate runs synchronously, in
+            # dispatch_verify (_detect_sharded).
+            return ("sync", ks)
         his = [k - cfg.kf_dist for k in ks]
         los = [max(0, h - cfg.search_window) for h in his]
         valid_rows = torch.arange(self.bow_db.shape[0], device=self.device) < self.count
@@ -453,7 +504,7 @@ class LoopCloser:
 
     def pending_rows(self, pending):
         """The device rows inside a gate_candidates handle, or None."""
-        return pending[4] if pending is not None else None
+        return pending[4] if pending is not None and pending[0] == "rows" else None
 
     def decide_loops(self, pending, rows_np=None) -> list:
         """Resolve a gate_candidates handle at once: host decisions, then
@@ -464,9 +515,13 @@ class LoopCloser:
         """Host accept decisions over a gate handle's rows (rows_np: the rows
         already fetched; fetched here otherwise), then the verification of
         every candidate pair, left on the device.  Returns None (nothing to
-        verify) or ("verify", cands, (n, 11) statistics)."""
+        verify), ("verify", cands, (n, 11) statistics), or, for a sharded
+        database's ("sync", ks), ("done", accepted closures) at once."""
         if pending is None:
             return None
+        if pending[0] == "sync":
+            return ("done", [lc for k in pending[1]
+                             for lc in (self._detect_sharded(k),) if lc is not None])
         _, ks, los, his, rows_dev = pending
         rows = rows_dev.cpu().numpy() if rows_np is None else rows_np
         cands = [(cand, k) for k, lo, hi, row in zip(ks, los, his, rows)
@@ -485,7 +540,7 @@ class LoopCloser:
 
     def pending_verify_arrays(self, handle):
         """The device statistics inside a dispatch_verify handle, or None."""
-        return handle[2] if handle is not None else None
+        return handle[2] if handle is not None and handle[0] == "verify" else None
 
     def resolve_verify(self, handle, stats=None) -> list:
         """The host accept gates over a dispatch_verify handle's statistics
@@ -493,10 +548,46 @@ class LoopCloser:
         accepted LoopClosures (also appended to self.closures)."""
         if handle is None:
             return []
+        if handle[0] == "done":
+            return handle[1]
         _, cands, stats_dev = handle
         stats = stats_dev.cpu().numpy() if stats is None else stats
         return [lc for (i, j), row in zip(cands, stats)
                 for lc in (self._verify_accept(i, j, row),) if lc is not None]
+
+    def _detect_sharded(self, k: int) -> Optional[LoopClosure]:
+        """The candidate gate of query k on the sharded database, resolved at
+        once (the reference's _detect_sharded, loop_closing.py:1015-1041):
+        the all-gathered scores, the host's gate over them (the adaptive
+        minimum score, neighbour consistency), then the verification of the
+        surviving pair."""
+        cfg = self.cfg
+        own = dist_loop.row_range(self.mesh, self.bow_db)
+        valid = torch.arange(own.start, own.stop, device=self.device) < self.count
+        query = dist_loop.get_row(self.mesh, self.bow_db, k)
+        sims = dist_loop.score_database_sharded(self.mesh, query, self.bow_db,
+                                                valid)[:self.count].cpu().numpy()
+        hi = k - cfg.kf_dist
+        lo = max(0, hi - cfg.search_window)
+        if hi <= lo:
+            return None
+        window = sims[lo:hi]
+        cand = int(np.argmax(window)) + lo
+        recent = sims[hi:k]
+        recent = recent[recent > 0.001]
+        lc_min = min(float(recent.min()) if len(recent) else 1.0, 0.4)
+        if float(sims[cand]) < max(cfg.min_score, lc_min):
+            return None
+        idxs = np.arange(lo, hi)
+        nb = (np.abs(idxs - cand) <= cfg.kf_max_dist) & (idxs != cand)
+        if int(np.sum(window[nb] >= 0.8 * lc_min)) < cfg.nkf_closest:
+            return None
+        return self._verify(cand, k)
+
+    def _verify(self, i: int, j: int) -> Optional[LoopClosure]:
+        """Verification of one candidate pair, resolved at once: a bucket of
+        one through _verify_device_batch, then the accept gates."""
+        return self._verify_accept(i, j, self._verify_device(i, j).cpu().numpy())
 
     def _verify_device(self, i: int, j: int):
         """Geometric verification of candidate pair (i, j): a bucket of one.

@@ -58,9 +58,17 @@ _TICKETS: dict = {}     # (device index, raw stream) -> the stream's uint32 tick
 _OWN_TICKETS: list = []  # use_ticket's, innermost last
 
 
-def schur_step_plain(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float):
+def schur_step_plain(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float,
+                     reduce=None):
     """Plain PyTorch version: the XLA body of window_ba._schur_step
-    (window_ba.py:373-431) on the kernel's argument layout."""
+    (window_ba.py:373-431) on the kernel's argument layout.
+
+    `reduce` (None: a window on one device) sums the pose system's four
+    partial sums — Hpp, bp, S_red and A·bl — over the ranks of a
+    landmark-sharded window (window_ba.optimize(mesh=)) before the solve,
+    the reference's psum points (window_ba.py:389,392,403,410); the
+    landmark blocks stay local.  Under a reduction the step is this plain
+    one: the sums fall inside the step, which the kernel runs whole."""
     W, L = wm.shape
     fx, fy, cx, cy, fxb = cam_row.unbind(0)
     Rm = R.reshape(W, 3, 3)
@@ -99,10 +107,13 @@ def schur_step_plain(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float)
     Jp = torch.where(fixed_pose[:, None, None, None], 0.0, Jp)
 
     Jpw = Jp * wgt[:, None, None, :]
-    Hpp = torch.einsum("wakl,waml->wkm", Jpw, Jp)
+    if reduce is None:
+        def reduce(x):
+            return x
+    Hpp = reduce(torch.einsum("wakl,waml->wkm", Jpw, Jp))
     Hll = torch.einsum("wabl,wl,wacl->bcl", Jl, wgt, Jl)
     Hpl = torch.einsum("wakl,wabl->wkbl", Jpw, Jl)
-    bp = -torch.einsum("wakl,wal->wk", Jpw, r)
+    bp = -reduce(torch.einsum("wakl,wal->wk", Jpw, r))
     bl = -torch.einsum("wabl,wl,wal->bl", Jl, wgt, r)
 
     eye3 = torch.eye(3, dtype=pw.dtype, device=pw.device)
@@ -110,7 +121,7 @@ def schur_step_plain(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float)
     Hll_inv = sym3_inv(Hll + damp * eye3[:, :, None])
 
     A = torch.einsum("wkml,mnl->wknl", Hpl, Hll_inv)
-    S_red = torch.einsum("wknl,vmnl->wvkm", A, Hpl)
+    S_red = reduce(torch.einsum("wknl,vmnl->wvkm", A, Hpl))
     tr = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)
     eye6 = torch.eye(6, dtype=pw.dtype, device=pw.device)
     Hpp_d = Hpp + (lam * eye6)[None] * torch.clamp(tr[:, None, None] / 6.0, min=1e-6)
@@ -118,7 +129,7 @@ def schur_step_plain(R, t, pw, obs3, urv, wm, fixed, cam_row, lam, delta: float)
     idx = torch.arange(W, device=pw.device)
     S[idx, idx] = S[idx, idx] + Hpp_d
     S = S.permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
-    rhs = bp - torch.einsum("wknl,nl->wk", A, bl)
+    rhs = bp - reduce(torch.einsum("wknl,nl->wk", A, bl))
 
     fixmat = fixed_pose.repeat_interleave(6)
     S = torch.where(fixmat[:, None] | fixmat[None, :], 0.0, S)

@@ -17,8 +17,13 @@ anything inside a chunk.  Eagerly (the CPU, `system_chunk_batch[_vio]`,
 and MultiSeqSlam's comparison route) the same step runs frame by frame,
 each cond reading the host once.  Stacking the S states into one tensor
 a field, each op launched once for all S, is the next step (ROADMAP 10b).
-The mesh and shard_map variants need more than one device and are not
-ported (ROADMAP Queue 1 item 10).
+
+Over several ranks (the reference's shard_map over P("seq"),
+multiseq.py:351-415): `make_mesh` lays the ranks on a `seq` axis,
+`shard_batch` keeps a rank's contiguous block of a batch, and that block
+runs through `system_chunk_batch[_vio]` itself (the reference's
+`system_chunk_batch[_vio]_sharded`) — zero collectives, as in the
+reference, since the sequences are independent.
 
 Window-BA cadence (`ba_every`, multiseq.py:164-258):
   - 1: per keyframe, exactly the single-sequence step (runner's
@@ -55,6 +60,7 @@ from ..pipeline import runner as runner_m
 from ..utils import control
 from ..utils.tree import tree_map
 from ..vio import vimotion
+from . import mesh as mesh_m
 
 
 def _batched_fcfg(fcfg: FrontendConfig) -> FrontendConfig:
@@ -70,16 +76,50 @@ def _stack(outs):
         tree_map(lambda *b: torch.stack(b), *row) for row in outs])
 
 
-def init_states(cfg: FrontendConfig, num_seqs: int, *, device):
-    """S fresh tracker states."""
-    return [tracker.init_state(cfg, device=device) for _ in range(num_seqs)]
+def make_mesh(device=None, axis: str = "seq") -> mesh_m.Mesh:
+    """Every rank of the process group on the `seq` axis."""
+    return mesh_m.make_mesh(axis, device)
 
 
-def init_system_states(fcfg: FrontendConfig, bcfg: BackendConfig, num_seqs: int, *, device,
-                       vcfg: VioConfig | None = None):
+def shard_batch(mesh: mesh_m.Mesh, tree):
+    """A rank's contiguous block of a batch on its device: every tensor (or
+    host array) leaf of `tree` cut on its leading (S,) axis, a list of S
+    per-sequence records cut to its block."""
+    if isinstance(tree, list):
+        return tree[mesh_m.block(mesh, len(tree))]
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        return tuple(shard_batch(mesh, a) for a in tree)
+
+    def cut(a):
+        a = a if isinstance(a, torch.Tensor) else torch.as_tensor(a)
+        return a[mesh_m.block(mesh, a.shape[0])].to(mesh.device)
+
+    if isinstance(tree, torch.Tensor) or not (hasattr(tree, "_fields")
+                                              or dataclasses.is_dataclass(tree)):
+        return cut(tree)
+    return tree_map(cut, tree)
+
+
+def _local(num_seqs: int, mesh, device):
+    """(sequences this process builds, their device)."""
+    if mesh is None:
+        return num_seqs, device
+    return len(range(num_seqs)[mesh_m.block(mesh, num_seqs)]), mesh.device
+
+
+def init_states(cfg: FrontendConfig, num_seqs: int, mesh=None, *, device=None):
+    """S fresh tracker states (with a mesh, the rank's block of them, on
+    its device)."""
+    n, device = _local(num_seqs, mesh, device)
+    return [tracker.init_state(cfg, device=device) for _ in range(n)]
+
+
+def init_system_states(fcfg: FrontendConfig, bcfg: BackendConfig, num_seqs: int, mesh=None,
+                       *, device=None, vcfg: VioConfig | None = None):
     """Per-sequence (tracker states, BA windows, pending corrections[, VIO
     states]); the pending corrections start as the null correction
-    (valid=False, applies nothing)."""
+    (valid=False, applies nothing).  With a mesh, the rank's block."""
+    num_seqs, device = _local(num_seqs, mesh, device)
     out = (init_states(fcfg, num_seqs, device=device),
            [window_ba.empty(bcfg, device=device) for _ in range(num_seqs)],
            [window_ba.null_correction(bcfg, device=device)] * num_seqs)
@@ -245,3 +285,4 @@ def system_chunk_batch_vio(fcfg: FrontendConfig, bcfg: BackendConfig, vcfg: VioC
         fcfg, bcfg, cams, zip(fe_states, ba_states, vio_states, corrs),
         (imgs0, imgs1, ts, acc, gyro, imu_t, imu_valid), generators, ba_every, vcfg, T_i_cs)
     return fes, bas, vios, corrs, outs, costs
+

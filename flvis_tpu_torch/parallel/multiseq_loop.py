@@ -27,6 +27,17 @@ chunk ends, with the chunked replay's deferred contract
 With pipelined=True a chunk's end runs after the next chunk has been
 stepped: process_chunk* returns the previous chunk's packed outputs (None
 on the first call) and flush() drains, the reference's return lag.
+
+mesh (a parallel/mesh.Mesh on the `seq` axis; the reference's shard_map
+over P("seq"), multiseq.py:351-415): each rank holds its contiguous block
+of the S sequences (multihost.host_sequence_slice) — their states,
+generators, captured step (one graph of S/n branches on the card) and loop
+nodes — and runs no collective in the frame loop.  process_chunk* take the
+(S, …) inputs and upload only the rank's block, and return the block's
+packed rows; trajectory_cam_centers gathers a sequence to every rank at the
+caller's request (a collective: every rank calls it).  A sequence's
+generator starts from `seed` wherever it lives, so its draws and results do
+not depend on the rank that holds it.
 """
 
 from __future__ import annotations
@@ -43,7 +54,8 @@ from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..loop.loop_closing import LoopCloser
 from ..pipeline import runner as runner_m
-from . import multiseq
+from ..utils.tree import tree_map
+from . import multihost, multiseq
 
 
 class MultiSeqSlam:
@@ -56,7 +68,8 @@ class MultiSeqSlam:
       num_seqs: S.
       use_imu: run the VIO frame step per sequence (process_chunk_vio).
       use_loop: a LoopCloser per sequence.
-      mesh: not ported — the sharded variants need more than one device.
+      mesh: the sequences split over the ranks of a `seq` mesh (module
+        note); the system then lives on the mesh's device.
       ba_every: window-BA cadence (parallel/multiseq module note).
       T_i_c: IMU-from-camera extrinsic shared by every sequence.
       pipelined: results one chunk late, as SlamSystem(pipelined=True).
@@ -68,41 +81,49 @@ class MultiSeqSlam:
                  use_imu: bool = False, use_loop: bool = True, mesh=None, ba_every: int = 1,
                  T_i_c: Optional[SE3] = None, cams=None, pipelined: bool = False, *,
                  device="cuda", seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError("MultiSeqSlam(mesh=...) is not ported yet: the "
-                                      "sharded variants need more than one device "
-                                      "(ROADMAP Queue 1 item 10)")
         self.cfg = cfg
         self.cam = cam
         self.S = num_seqs
+        self.mesh = mesh
+        # The global indices of the sequences this process holds.
+        self.seqs = (range(num_seqs) if mesh is None
+                     else range(num_seqs)[multihost.host_sequence_slice(num_seqs, mesh)])
+        n_local = len(self.seqs)
         self.use_imu = use_imu
         self.ba_every = ba_every
-        self.device = torch.device(device)
-        self.cams = list(cams) if cams is not None else [cam] * num_seqs
+        self.device = torch.device(device) if mesh is None else mesh.device
+        cams = list(cams) if cams is not None else [cam] * num_seqs
+        self.cams = [tree_map(lambda a: a.to(self.device), cams[s]) for s in self.seqs]
         one_T = T_i_c if T_i_c is not None else se3m.identity(device=self.device)
-        self.T_i_cs = [SE3(one_T.q.to(self.device), one_T.t.to(self.device))] * num_seqs
-        states = multiseq.init_system_states(cfg.frontend, cfg.backend, num_seqs,
+        self.T_i_cs = [SE3(one_T.q.to(self.device), one_T.t.to(self.device))] * n_local
+        states = multiseq.init_system_states(cfg.frontend, cfg.backend, n_local,
                                              device=self.device,
                                              vcfg=cfg.vio if use_imu else None)
         self.fe, self.ba, self.corr = states[:3]
         self.vio = states[3] if use_imu else None
         self.generators = [torch.Generator(device=self.device).manual_seed(seed)
-                           for _ in range(num_seqs)]
+                           for _ in range(n_local)]
         self.loopers: list = [LoopCloser(cfg.loop, c, device=self.device) if use_loop else None
                               for c in self.cams]
         self.stages = [runner_m.LoopStage(lc) if lc is not None else None
                        for lc in self.loopers]
         self._frames = 0
-        self.trajectories: list = [[] for _ in range(num_seqs)]
+        self.trajectories: list = [[] for _ in range(n_local)]    # a held sequence's frames
+        self.ba_costs: list = [[] for _ in range(n_local)]   # a frame's window BA cost (0: none)
         self.pipelined = pipelined
         self._inflight = None
         self._captured = {}             # "stereo" / "vio" -> runner._Captured (CUDA devices)
         # Each sequence's schur last-block ticket: its branch's own.
-        self._tickets = (torch.zeros((num_seqs, 1), dtype=torch.int32, device=self.device)
+        self._tickets = (torch.zeros((n_local, 1), dtype=torch.int32, device=self.device)
                          if self.device.type == "cuda" else None)
 
     def _to_device(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
+        """(S, …) inputs → this process's block on the device (inputs of
+        the block's size pass as they are)."""
+        if len(a) == self.S and len(self.seqs) != self.S:
+            a = a[self.seqs.start:self.seqs.stop]
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+        return t.to(self.device, dtype)
 
     # ---------------------------------------------------------------- steps
     def _carries(self, vio: bool):
@@ -151,11 +172,12 @@ class MultiSeqSlam:
         cap = self._captured.get(kind)
         if cap is None:
             xs = tuple(x[0] for x in self._frame_major(seq_xs))
-            u = torch.zeros((self.S, tracker.draws_size(self.cfg.frontend)),
+            n = len(self.seqs)
+            u = torch.zeros((n, tracker.draws_size(self.cfg.frontend)),
                             dtype=torch.float32, device=self.device)
             cap = self._captured[kind] = runner_m._Captured(
                 self._step(kind, self._tickets), self._carries(kind == "vio"), xs, u,
-                f"the {self.S}-sequence {kind} frame step", branches=self.S)
+                f"the {n}-sequence {kind} frame step", branches=n)
         return cap
 
     def _run_chunk_eager(self, kind: str, seq_xs):
@@ -170,7 +192,10 @@ class MultiSeqSlam:
     def process_chunk(self, imgs0, imgs1, ts=None):
         """One (S, T, H, W) chunk through the frame step, then the
         per-sequence loop stage.  Returns the (S, T, 12) packed host outputs
-        (columns as runner._pack_outputs)."""
+        (columns as runner._pack_outputs) — with a mesh, the rank's block's
+        rows, (S/n, T, 12)."""
+        if ts is not None and len(ts) == self.S:
+            ts = np.asarray(ts)[self.seqs.start:self.seqs.stop]
         imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
         rows, cap = self._run_chunk("stereo", (imgs0, imgs1))
         return self._after_dispatch(rows, cap, imgs0, imgs1, ts)
@@ -178,6 +203,8 @@ class MultiSeqSlam:
     def process_chunk_vio(self, imgs0, imgs1, ts, acc, gyro, imu_t, imu_valid):
         """VIO variant: (S, T) image times plus (S, T, P, ·) packed per-frame
         IMU batches (runner.pack_imu_frames per sequence)."""
+        if len(ts) == self.S:
+            ts = np.asarray(ts)[self.seqs.start:self.seqs.stop]
         imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
         f = torch.float32
         rows, cap = self._run_chunk("vio", (
@@ -203,9 +230,9 @@ class MultiSeqSlam:
         loop node."""
         S, T = imgs0.shape[0], imgs0.shape[1]
         pending = [st.pending() if st is not None else (None, None) for st in self.stages]
-        fetched = runner_m.fetch(rows_dev[..., :12], cap.step.taken if cap is not None else None,
+        fetched = runner_m.fetch(rows_dev, cap.step.taken if cap is not None else None,
                                  *[a for p in pending for a in p])
-        packed = fetched[0]
+        packed = np.ascontiguousarray(fetched[0][..., :12])
         if cap is not None:
             cap.step.settle(fetched[1])
         for s, st in enumerate(self.stages):
@@ -219,6 +246,7 @@ class MultiSeqSlam:
                 self.trajectories[s].append(
                     (first + i, float(ts_np[s, i]) if ts_np is not None else 0.0,
                      packed[s, i, 5:9].copy(), packed[s, i, 9:12].copy()))
+            self.ba_costs[s].extend(fetched[0][s, :, 12].tolist())
             if self.stages[s] is not None:
                 kf_idx = [i for i in range(T) if packed[s, i, 0] > 0.5]
                 self.stages[s].ingest(imgs0[s], imgs1[s], kf_idx, packed[s, kf_idx, 5:9],
@@ -240,11 +268,21 @@ class MultiSeqSlam:
 
     # -------------------------------------------------------------- exports
     def trajectory_cam_centers(self, s: int, loop_corrected: bool = False):
-        """(N, 3) camera centres of sequence s, optionally drift-corrected
-        through its loop node."""
-        lc = self.loopers[s]
+        """(N, 3) camera centres of sequence s (a global index), optionally
+        drift-corrected through its loop node.  With a mesh, every rank's
+        block is gathered to every rank (multihost.gather_to_host): a
+        collective every rank calls, with the same arguments."""
+        if self.mesh is not None:
+            local = np.stack([self._cam_centers(i, loop_corrected)
+                              for i in range(len(self.seqs))]).astype(np.float64)
+            return multihost.gather_to_host(self.mesh, local)[s]
+        return self._cam_centers(s, loop_corrected)
+
+    def _cam_centers(self, i: int, loop_corrected: bool):
+        """Camera centres of the process's i-th sequence."""
+        lc = self.loopers[i]
         out = []
-        for (_, _, q, t) in self.trajectories[s]:
+        for (_, _, q, t) in self.trajectories[i]:
             q, t = torch.as_tensor(q), torch.as_tensor(t)
             if loop_corrected and lc is not None:
                 T = lc.corrected_pose(SE3(q, t))

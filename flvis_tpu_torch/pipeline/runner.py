@@ -61,8 +61,13 @@ correction landmarks (lm_id, lm_pw, lm_mask) into the chunk's output
 buffers, read by the chunk end's one fetch — the flag off, the step and
 its graph are what they are without it.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP item): the
-loop node on its own device (loop_device).
+loop_device (the reference's SlamSystem(loop_device=), runner.py:274-286)
+puts the whole loop node — store, ingest, gate, verification and PGO — on
+a device of its own: the chunk end moves only the keyframes' images and
+poses there, and its one fetch reads the gate rows and verification
+statistics on the loop node's device beside the packed outputs on the
+system's.  The captured frame step is the same whatever the loop node's
+device.
 """
 
 from __future__ import annotations
@@ -114,19 +119,17 @@ def _unpack_outputs(packed) -> tracker.FrameOutput:
 
 
 def fetch(*tensors):
-    """One device → host copy for several tensors of one device (None
+    """One device → host copy for each device the tensors live on (None
     passes through): returns float32 numpy arrays of the same shapes."""
-    live = [t for t in tensors if t is not None]
-    if not live:
-        return [None] * len(tensors)
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in live]).cpu().numpy()
-    out, off = [], 0
-    for t in tensors:
-        if t is None:
-            out.append(None)
-            continue
-        out.append(flat[off:off + t.numel()].reshape(tuple(t.shape)))
-        off += t.numel()
+    out = [None] * len(tensors)
+    for dev in dict.fromkeys(t.device for t in tensors if t is not None):
+        idx = [i for i, t in enumerate(tensors) if t is not None and t.device == dev]
+        flat = torch.cat([tensors[i].reshape(-1).to(torch.float32) for i in idx]).cpu().numpy()
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].reshape(tuple(tensors[i].shape))
+            off += n
     return out
 
 
@@ -156,12 +159,29 @@ class LoopStage:
         if verify is not None and self.lc.resolve_verify(verify, stats):
             self.lc.optimize_graph()
         if gate is not None:
-            self.verify = self.lc.dispatch_verify(gate, rows)
+            handle = self.lc.dispatch_verify(gate, rows)
+            if handle is not None and handle[0] == "done":
+                # A sharded database resolved its gate and verification now.
+                if handle[1]:
+                    self.lc.optimize_graph()
+            else:
+                self.verify = handle
 
     def ingest(self, imgs_l, imgs_r, kf_idx, q, t, frame_ids):
-        """The chunk's keyframes into the loop node, and their gate."""
+        """The chunk's keyframes into the loop node, and their gate.  On
+        another device than the images' (loop_device), only the keyframes'
+        images move there."""
         if kf_idx:
-            ks = self.lc.add_keyframes_batch(imgs_l, imgs_r, kf_idx, q, t, frame_ids)
+            sel = kf_idx
+            src = imgs_l.device if torch.is_tensor(imgs_l) else torch.device("cpu")
+            if src != self.lc.device:
+                def keyframes(imgs):
+                    imgs = imgs if torch.is_tensor(imgs) else torch.as_tensor(np.asarray(imgs))
+                    return imgs[kf_idx].to(self.lc.device)
+
+                imgs_l, imgs_r = keyframes(imgs_l), keyframes(imgs_r)
+                sel = list(range(len(kf_idx)))
+            ks = self.lc.add_keyframes_batch(imgs_l, imgs_r, sel, q, t, frame_ids)
             self.gate = self.lc.gate_candidates(ks)
 
     def flush(self):
@@ -352,10 +372,6 @@ class SlamSystem:
     def __init__(self, cfg: SystemConfig, cam: StereoCamera, *, device="cuda", seed: int = 0,
                  T_i_c: Optional[SE3] = None, use_imu: bool = False, use_loop: bool = False,
                  output_sparse_map: bool = False, loop_device=None, pipelined: bool = False):
-        if loop_device is not None:
-            raise NotImplementedError("SlamSystem(loop_device=...) is not ported yet: ROADMAP "
-                                      "Queue 1 item 10 (pipeline/overlap.py, "
-                                      "SlamSystem(loop_device=))")
         self.cfg = cfg
         self.cam = cam
         self.device = torch.device(device)
@@ -367,8 +383,11 @@ class SlamSystem:
             T_i_c = se3m.identity(device=self.device)
         self.T_i_c = SE3(T_i_c.q.to(self.device), T_i_c.t.to(self.device))
         self.vio_state = vimotion.init_state(cfg.vio, device=self.device)
-        self.loop_closer = (LoopCloser(cfg.loop, cam, device=self.device,
-                                       depth_mode=cfg.frontend.depth_mode)
+        # loop_device: the whole loop node (and its PGO) on a device of its own.
+        self.loop_device = torch.device(loop_device) if loop_device is not None else self.device
+        self.loop_closer = (LoopCloser(cfg.loop, cam, device=self.loop_device,
+                                       depth_mode=cfg.frontend.depth_mode,
+                                       pgo_device=loop_device)
                             if use_loop else None)
         self.loop_stage = LoopStage(self.loop_closer) if use_loop else None
         # The reference's `output_sparse_map` YAML flag: BA-corrected

@@ -14,9 +14,12 @@ Usage:
   python -m flvis_tpu_torch.run_multiseq --seqs 2 --frames 32 --loop
   python -m flvis_tpu_torch.run_multiseq --seqs 4 --frames 16 --imu --pipelined
   python -m flvis_tpu_torch.run_multiseq --cpu --seqs 2 --frames 16
+  torchrun --nproc-per-node 2 -m flvis_tpu_torch.run_multiseq --seqs 4 --mesh
 
---mesh (the sequences sharded over several devices) is not ported yet and
-raises.
+--mesh splits the sequences over the ranks of the process group the
+environment describes (a torchrun launch; one process without one): each
+rank renders, steps and loop-closes only its own block of sequences, and
+the primary prints the per-sequence ATE lines, gathered at the end.
 """
 
 from __future__ import annotations
@@ -38,26 +41,30 @@ def _parser():
                     help="loop closing per sequence (out-and-back paths)")
     ap.add_argument("--pipelined", action="store_true", help="double-buffered chunk replay")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard the sequences over all visible devices (not ported yet)")
+                    help="split the sequences over the ranks of the launch's process group")
     ap.add_argument("--ba-every", type=int, default=1)
     return ap
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("run_multiseq --mesh: the sequences sharded over several "
-                                  "devices are not ported yet: ROADMAP Queue 1 item 10")
     import torch
 
     from .config import BackendConfig, FrontendConfig, LoopConfig, SystemConfig
     from .geometry import camera
     from .io.synthetic import PlanarScene, SceneConfig, imu_from_trajectory
+    from .parallel import mesh as mesh_m, multihost, multiseq
     from .parallel.multiseq_loop import MultiSeqSlam
     from .pipeline.runner import pack_imu_frames
 
     device = torch.device("cpu" if args.cpu else "cuda")
+    mesh = None
+    if args.mesh:
+        multihost.initialize(device_type=device.type)
+        mesh = multiseq.make_mesh(device)
+        device = mesh.device
     S, n = args.seqs, args.frames
+    mine = range(S)[multihost.host_sequence_slice(S, mesh)] if mesh is not None else range(S)
     n -= n % args.chunk
     if n == 0:
         raise SystemExit("--frames must be >= --chunk")
@@ -94,15 +101,17 @@ def main(argv=None) -> int:
             xs = [step * i for i in range(n)]
         poses = [(np.eye(3), -np.asarray([x, 0.0, 0.0])) for x in xs]
         seq_poses.append(poses)
-        seq_frames.append([scene.render(R, t) for (R, t) in poses])
+        # Each rank renders only its own sequences.
+        seq_frames.append([scene.render(R, t) for (R, t) in poses] if s in mine else None)
 
     ms = MultiSeqSlam(cfg, cam, num_seqs=S, use_imu=args.imu, use_loop=args.loop,
-                      ba_every=args.ba_every, pipelined=args.pipelined, device=device)
+                      ba_every=args.ba_every, pipelined=args.pipelined, device=device,
+                      mesh=mesh)
 
     imu = None
     if args.imu:
         imu = []
-        for s in range(S):
+        for s in mine:
             t_imu, gyro, acc, frame_t = imu_from_trajectory(seq_poses[s], fps=20.0)
             accs, gyros, imuts = [], [], []
             prev = -np.inf
@@ -117,13 +126,12 @@ def main(argv=None) -> int:
     n_timed = 0
     for c0 in range(0, n, args.chunk):
         sl = slice(c0, c0 + args.chunk)
-        i0 = np.stack([np.stack([f[0] for f in fr[sl]]) for fr in seq_frames])
-        i1 = np.stack([np.stack([f[1] for f in fr[sl]]) for fr in seq_frames])
+        i0 = np.stack([np.stack([f[0] for f in seq_frames[s][sl]]) for s in mine])
+        i1 = np.stack([np.stack([f[1] for f in seq_frames[s][sl]]) for s in mine])
         if args.imu:
-            packs = [pack_imu_frames(imu[s][1][sl], imu[s][2][sl], imu[s][3][sl], 16)
-                     for s in range(S)]
-            ms.process_chunk_vio(i0, i1, np.stack([np.asarray(imu[s][0][sl], np.float32)
-                                                   for s in range(S)]),
+            packs = [pack_imu_frames(im[1][sl], im[2][sl], im[3][sl], 16) for im in imu]
+            ms.process_chunk_vio(i0, i1, np.stack([np.asarray(im[0][sl], np.float32)
+                                                   for im in imu]),
                                  *(np.stack([p[k] for p in packs]) for k in range(4)))
         else:
             ms.process_chunk(i0, i1)
@@ -138,21 +146,30 @@ def main(argv=None) -> int:
     fps = S * n_timed / elapsed if n_timed else float("nan")
 
     capture = ", its capture included" if device.type == "cuda" else ""
-    print(f"\n{S} sequences x {n} frames on {device} (first chunk {first_t:.1f} s{capture}; "
-          f"steady {fps:.1f} frames/s aggregate)")
+    ranks = f" over {mesh.size} ranks" if mesh is not None else ""
+    primary = multihost.is_primary()
+    if primary:
+        print(f"\n{S} sequences x {n} frames on {device}{ranks} (first chunk {first_t:.1f} s"
+              f"{capture}; steady {fps:.1f} frames/s aggregate"
+              f"{' on the primary' if ranks else ''})")
+    loops_of = [len(lc.closures) if lc is not None else 0 for lc in ms.loopers]
+    if mesh is not None:
+        loops_of = sum(mesh_m.all_gather_object(mesh, loops_of), [])
     fail = False
     for s in range(S):
-        C = ms.trajectory_cam_centers(s, loop_corrected=args.loop)
+        C = ms.trajectory_cam_centers(s, loop_corrected=args.loop)      # every rank calls it
         C_gt = np.asarray([-R.T @ t for (R, t) in seq_poses[s]])
         ate = np.sqrt(np.mean(np.sum((C - C_gt) ** 2, axis=-1)))
         path = float(np.abs(np.diff(C_gt[:, 0])).sum())
-        lc = ms.loopers[s]
-        loops = len(lc.closures) if lc is not None else 0
         status = "ok" if ate < 0.02 * path + 0.015 else "HIGH"
         fail |= status != "ok"
-        print(f"  seq {s}: ATE {100 * ate:6.2f} cm over {path:.2f} m "
-              f"({status}){f'  loops={loops}' if args.loop else ''}")
-    print("RESULT:", "FAIL" if fail else "PASS")
+        if primary:
+            print(f"  seq {s}: ATE {100 * ate:6.2f} cm over {path:.2f} m "
+                  f"({status}){f'  loops={loops_of[s]}' if args.loop else ''}")
+    if primary:
+        print("RESULT:", "FAIL" if fail else "PASS")
+    if mesh is not None:
+        multihost.shutdown()
     return 1 if fail else 0
 
 

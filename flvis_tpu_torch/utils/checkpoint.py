@@ -173,10 +173,16 @@ def save_loop_closer(path: str, lc) -> None:
     """Checkpoint a loop.loop_closing.LoopCloser: keyframe database (BoW
     vectors, ORB features, keypoint 3D), node poses, accepted closures,
     drift transform, and the trained vocabulary.  Descriptors are written
-    as uint32, the JAX package's dtype (the same bits)."""
+    as uint32, the JAX package's dtype (the same bits).  A keyframe-sharded
+    LoopCloser's database is gathered first: every rank calls this."""
+    np.savez_compressed(path, **_loop_arrays(lc))
+
+
+def _loop_arrays(lc) -> dict:
+    """save_loop_closer's arrays."""
     n = lc.count
     arrays = {
-        "bow_db": _host(lc.bow_db[:n]),
+        "bow_db": _host(lc._whole_db()[:n]),      # a sharded database gathered
         "kf_uv": _host(lc.kf_uv[:n]), "kf_desc": _host(lc.kf_desc[:n]).view(np.uint32),
         "kf_kp_valid": _host(lc.kf_kp_valid[:n]),
         "kf_pc": _host(lc.kf_pc[:n]),
@@ -196,7 +202,7 @@ def save_loop_closer(path: str, lc) -> None:
     if lc.vocab is not None:
         arrays["vocab_words"] = _host(lc.vocab.words_pm1)
         arrays["vocab_idf"] = _host(lc.vocab.idf)
-    np.savez_compressed(path, **arrays)
+    return arrays
 
 
 def load_loop_closer(path: str, lc) -> None:
@@ -214,13 +220,23 @@ def load_loop_closer(path: str, lc) -> None:
     with np.load(path) as f:
         d = {k: f[k] for k in f.files}
     n = len(d["kf_frame_id"])
-    while n > lc.bow_db.shape[0]:
+    while n > lc.capacity:
         lc._grow()
     if "vocab_words" in d:
         lc.vocab = bow.Vocabulary(dev_t(d["vocab_words"], torch.float32),
                                   dev_t(d["vocab_idf"], torch.float32))
     lc.count = n
-    lc.bow_db[:n] = dev_t(d["bow_db"], torch.float32)
+    db = dev_t(d["bow_db"], torch.float32)
+    if lc.mesh is None:
+        lc.bow_db[:n] = db
+    else:
+        # A keyframe-sharded database keeps its own rows only.
+        from ..parallel import dist_loop
+
+        own = dist_loop.row_range(lc.mesh, lc.bow_db)
+        hi = min(own.stop, n)
+        if own.start < hi:
+            lc.bow_db[:hi - own.start] = db[own.start:hi]
     lc.kf_uv[:n] = dev_t(d["kf_uv"], torch.float32)
     lc.kf_desc[:n] = dev_t(np.asarray(d["kf_desc"]).view(np.int32))
     lc.kf_kp_valid[:n] = dev_t(d["kf_kp_valid"], torch.bool)
@@ -258,31 +274,53 @@ def save_multiseq(path: str, ms) -> None:
     """Checkpoint a parallel.multiseq_loop.MultiSeqSlam: the (tracker, BA,
     correction[, VIO]) states stacked over the S sequences, the generators'
     states, per-sequence trajectories, and each sequence's loop node.
-    Drains the in-flight chunk and deferred loop batches first."""
+    Drains the in-flight chunk and deferred loop batches first.  A system
+    over a mesh (every rank calls this) gathers its ranks' blocks, and the
+    primary writes the one file set of the whole system."""
+    from ..parallel import mesh as mesh_m
+
     ms.flush()
-    save_pytree(path, _multiseq_states(ms), extra={
-        GENERATORS_KEY: np.stack([_host(g.get_state()) for g in ms.generators])})
-    for s in range(ms.S):
-        np.save(f"{path}.traj{s}.npy", _traj_rows(ms.trajectories[s]))
-        if ms.loopers[s] is not None:
-            save_loop_closer(f"{path}.loop{s}.npz", ms.loopers[s])
+    states = _multiseq_states(ms)
+    gens = np.stack([_host(g.get_state()) for g in ms.generators])
+    trajs = [_traj_rows(t) for t in ms.trajectories]
+    loops = [_loop_arrays(lc) if lc is not None else None for lc in ms.loopers]
+    if ms.mesh is not None:
+        states = {k: tree_map(lambda a: mesh_m.all_gather(ms.mesh, a), v)
+                  for k, v in states.items()}
+        gens = np.concatenate(mesh_m.all_gather_object(ms.mesh, gens))
+        trajs = sum(mesh_m.all_gather_object(ms.mesh, trajs), [])
+        loops = sum(mesh_m.all_gather_object(ms.mesh, loops), [])
+    if ms.mesh is None or ms.mesh.rank == 0:
+        save_pytree(path, states, extra={GENERATORS_KEY: gens})
+        for s in range(ms.S):
+            np.save(f"{path}.traj{s}.npy", trajs[s])
+            if loops[s] is not None:
+                np.savez_compressed(f"{path}.loop{s}.npz", **loops[s])
+    if ms.mesh is not None:
+        mesh_m.barrier(ms.mesh)         # the files exist before any rank reads them
 
 
 def load_multiseq(path: str, ms) -> None:
     """Restore a MultiSeqSlam checkpoint in place (ms provides templates,
     sequence count, and loop-node device): the stacked states are split
-    into one record per sequence."""
-    state = load_pytree(path, _multiseq_states(ms))
-    ms.fe, ms.ba, ms.corr = (_split(state[k], ms.S) for k in ("fe", "ba", "corr"))
+    into one record per sequence — over a mesh, each rank takes its own
+    block's."""
+    seqs = ms.seqs
+    n = len(seqs)
+    template = {k: tree_map(lambda a: a.new_empty((ms.S,) + tuple(a.shape[1:])), v)
+                for k, v in _multiseq_states(ms).items()}
+    state = {k: tree_map(lambda a: a[seqs.start:seqs.stop], v)
+             for k, v in load_pytree(path, template).items()}
+    ms.fe, ms.ba, ms.corr = (_split(state[k], n) for k in ("fe", "ba", "corr"))
     if ms.vio is not None:
-        ms.vio = _split(state["vio"], ms.S)
+        ms.vio = _split(state["vio"], n)
     with np.load(path) as d:
         if GENERATORS_KEY in d.files:
-            for g, st in zip(ms.generators, d[GENERATORS_KEY]):
+            for g, st in zip(ms.generators, d[GENERATORS_KEY][seqs.start:seqs.stop]):
                 _set_generator(g, st)
-    for s in range(ms.S):
-        ms.trajectories[s] = _traj_list(np.load(f"{path}.traj{s}.npy"))
+    for i, s in enumerate(seqs):
+        ms.trajectories[i] = _traj_list(np.load(f"{path}.traj{s}.npy"))
         lp = f"{path}.loop{s}.npz"
-        if ms.loopers[s] is not None and os.path.exists(lp):
-            load_loop_closer(lp, ms.loopers[s])
+        if ms.loopers[i] is not None and os.path.exists(lp):
+            load_loop_closer(lp, ms.loopers[i])
     ms._frames = len(ms.trajectories[0])

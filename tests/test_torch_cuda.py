@@ -1839,3 +1839,170 @@ def test_sparse_map_flag_keeps_the_graph(dev):
     assert off.top_nodes == on.top_nodes
     assert [x["nodes"] for x in off.sites] == [x["nodes"] for x in on.sites]
     assert len(off.ys) == 2 and len(on.ys) == 2 and len(on.ys[1]) == 2
+
+
+# ------------------------------------------------ the multi-device paths
+def test_overlap_pipeline_on_one_card_matches_stepwise(dev):
+    """OverlappedPipeline with frontend and backend on the one card: the
+    backend step captured and replayed on a stream of its own, ordered by
+    events — every pose, status and BA cost bit-equal to the stepwise
+    SlamSystem.process_frame on the card, one fetch a frame."""
+    from flvis_tpu_torch.pipeline.overlap import OverlappedPipeline
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _entry_system(dev)
+    imgs0, imgs1, _, _ = _entry_frames(blank=())
+    pipe = OverlappedPipeline(cfg, cam, dev, dev)
+    ref = SlamSystem(cfg, cam, device=dev, seed=0)
+    for a, b in zip(imgs0, imgs1):
+        o, o_ref = pipe.process_frame(a, b), ref.process_frame(a, b)
+        assert o.status == int(o_ref.status) and bool(o.is_keyframe) == bool(o_ref.is_keyframe)
+    assert pipe.ba_dev == pipe.fe_dev and pipe._captured is not None
+    assert pipe.ba_stream != torch.cuda.current_stream(dev)
+    np.testing.assert_array_equal(np.asarray([q for (_, q, _) in pipe.trajectory]),
+                                  np.asarray([q for (_, _, q, _) in ref.trajectory]))
+    np.testing.assert_array_equal(np.asarray([t for (_, _, t) in pipe.trajectory]),
+                                  np.asarray([t for (_, _, _, t) in ref.trajectory]))
+    assert pipe.fetch_count == len(imgs0)
+    assert pipe.ba_costs() == ref.ba_costs and len(ref.ba_costs) >= 2
+    assert pipe._captured.replays == len(imgs0)
+
+
+def test_overlap_pipeline_cpu_backend_behind_the_card(dev):
+    """OverlappedPipeline with the frontend on the card and the backend on
+    the CPU: the backend step on its worker thread, handed each packet by a
+    non-blocking copy into pinned memory; the host syncs a frame are the
+    row's fetch and the wait for the previous frame's solve; statuses and
+    keyframes those of the all-card pipeline."""
+    from flvis_tpu_torch.pipeline.overlap import OverlappedPipeline
+
+    cfg, cam = _entry_system(dev)
+    imgs0, imgs1, _, _ = _entry_frames(blank=())
+    card, cpu = OverlappedPipeline(cfg, cam, dev, dev), OverlappedPipeline(cfg, cam, dev, "cpu")
+    for a, b in zip(imgs0, imgs1):
+        o, o_cpu = card.process_frame(a, b), cpu.process_frame(a, b)
+        assert o.status == o_cpu.status and bool(o.is_keyframe) == bool(o_cpu.is_keyframe)
+    n = len(imgs0)
+    assert (cpu.fetch_count, cpu.backend_waits, cpu.handoff_count) == (n, n - 1, n)
+    assert cpu.ba_state.kf_q.device.type == "cpu" and len(cpu.ba_costs()) >= 2
+    np.testing.assert_allclose(np.asarray([t for (_, _, t) in cpu.trajectory]),
+                               np.asarray([t for (_, _, t) in card.trajectory]), atol=1e-3,
+                               rtol=0)
+
+
+def _loop_system(dev, loop_device):
+    from flvis_tpu_torch.config import BackendConfig, FrontendConfig, LoopConfig, SystemConfig
+    from flvis_tpu_torch.geometry import camera
+    from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    scfg = SceneConfig(width=256, height=192, fx=200.0, fy=200.0, cx=128.0, cy=96.0,
+                       baseline=0.12)
+    cfg = SystemConfig(
+        frontend=FrontendConfig(width=256, height=192, num_slots=128, pyramid_levels=3,
+                                per_cell=8, min_distance=12.0, margin=22, kf_min_trans=0.04),
+        backend=BackendConfig(window_size=5, max_landmarks=256, iters1=8, iters2=4),
+        loop=LoopConfig(max_keyframes=64, num_orb_features=128, vocab_words=128, kf_start=10,
+                        kf_dist=8, kf_max_dist=64, nkf_closest=2, min_pts=12, min_score=0.03,
+                        ratio_ransac=0.3, seq_edge_successors=3))
+    cam = camera.make(200.0, 200.0, 128.0, 96.0, 0.12, width=256, height=192, device=dev)
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=11)
+    xs = list(np.linspace(0, 0.9, 12)) + list(np.linspace(0.9, 0.02, 12))
+    fr = [scene.render(np.eye(3), -np.asarray([x, 0.0, 0.0]))[:2] for x in xs]
+    slam = SlamSystem(cfg, cam, device=dev, seed=0, use_loop=True, loop_device=loop_device)
+    for a in range(0, 24, 8):
+        slam.process_frames(np.stack([f[0] for f in fr[a:a + 8]]),
+                            np.stack([f[1] for f in fr[a:a + 8]]))
+    slam.flush_loop()
+    return slam
+
+
+def test_loop_device_cpu_under_a_captured_system(dev):
+    """A captured system whose loop node lives on the CPU: the frame graph
+    is the all-card system's (the same node statistics), the loop node's
+    tables on the CPU, and the same closures (i, j) as the all-card run."""
+    card, cpu = _loop_system(dev, None), _loop_system(dev, "cpu")
+    stats = [next(iter(s._captured.values())).step.node_stats() for s in (card, cpu)]
+    assert stats[0] == stats[1]
+    assert cpu.loop_closer.bow_db.device.type == "cpu" and card.loop_closer.bow_db.is_cuda
+    assert len(card.loop_closer.closures) >= 1
+    assert [(c.kf_i, c.kf_j) for c in cpu.loop_closer.closures] == \
+        [(c.kf_i, c.kf_j) for c in card.loop_closer.closures]
+
+
+def _sharded_window(seed=0, W=5, L=256, n_lm=120):
+    """A W-keyframe window of n_lm noisy landmarks in L slots, built on the
+    CPU (host arrays for the ranks)."""
+    from flvis_tpu_torch import interop
+    from flvis_tpu_torch.backend import window_ba
+    from flvis_tpu_torch.config import BackendConfig
+    from flvis_tpu_torch.geometry import camera, se3, so3
+
+    rng = np.random.default_rng(seed)
+    cfg = BackendConfig(window_size=W, max_landmarks=L, iters1=12, iters2=8, pallas_schur=False)
+    cam = camera.make(400.0, 400.0, 256.0, 192.0, 0.2, width=512, height=384, device="cpu")
+    pts = torch.as_tensor(rng.uniform([-4, -3, 6], [4, 3, 14], (n_lm, 3)).astype(np.float32))
+    st = window_ba.empty(cfg, device="cpu")
+    for i in range(W):
+        T = se3.SE3(so3.exp(torch.tensor([0.0, 0.002 * i, 0.0])),
+                    torch.tensor([-0.25 * i, 0.0, 0.0]))
+        pc = se3.transform_points(T, pts)
+        uvr = camera.project_stereo(cam, pc) + torch.as_tensor(
+            rng.normal(scale=0.5, size=(n_lm, 3)).astype(np.float32))
+        if i:
+            T = se3.compose(se3.exp(torch.as_tensor(rng.normal(scale=0.02, size=6)
+                                                    .astype(np.float32))), T)
+        pkt = window_ba.KeyframePacket(
+            frame_id=torch.tensor(i, dtype=torch.int32), q=T.q, t=T.t,
+            lm_id=torch.arange(100, 100 + n_lm, dtype=torch.int32), lm_uv=uvr[:, :2],
+            lm_ur=uvr[:, 2], lm_ur_mask=torch.ones(n_lm, dtype=torch.bool),
+            lm_pw=pts + torch.as_tensor(rng.normal(scale=0.15, size=(n_lm, 3))
+                                        .astype(np.float32)),
+            lm_mask=torch.ones(n_lm, dtype=torch.bool))
+        st = window_ba.add_keyframe(cfg, st, pkt)
+    return cfg, interop.to_numpy(st)
+
+
+def _sharded_ba_rank(window):
+    from flvis_tpu_torch import interop
+    from flvis_tpu_torch.backend import window_ba
+    from flvis_tpu_torch.geometry import camera
+    from flvis_tpu_torch.parallel import dist_ba
+
+    mesh = dist_ba.make_lm_mesh()
+    cfg, _ = _sharded_window()
+    cam = camera.make(400.0, 400.0, 256.0, 192.0, 0.2, width=512, height=384,
+                      device=mesh.device)
+    st = interop.from_numpy(window, window_ba.empty(cfg, device="cpu"),
+                            interop.to_torch(mesh.device))
+    poses, lm, cost = dist_ba.optimize_sharded(cfg, mesh, cam,
+                                               dist_ba.shard_window_state(mesh, st))
+    return (str(mesh.device), torch.distributed.get_backend(), poses.t.cpu().numpy(),
+            lm.cpu().numpy(), cost.cpu().numpy())
+
+
+def test_optimize_sharded_two_gloo_ranks_on_the_card(dev):
+    """optimize_sharded over 2 ranks sharing the card (the backend rule
+    picks gloo: two ranks, one GPU; CUDA tensors cross through pinned host
+    buffers) against the single-device optimize at pallas_schur=False
+    (tests/test_parallel.py:353-356's bounds); the ranks bit-equal."""
+    from flvis_tpu_torch import interop
+    from flvis_tpu_torch.backend import window_ba
+    from flvis_tpu_torch.geometry import camera
+    from flvis_tpu_torch.ops.kernels import _build
+    from flvis_tpu_torch.parallel import multihost
+
+    _build.load_library()                   # built before the ranks start
+    cfg, window = _sharded_window()
+    ranks = multihost.spawn(_sharded_ba_rank, 2, (window,), device_type="cuda")
+    cam = camera.make(400.0, 400.0, 256.0, 192.0, 0.2, width=512, height=384, device=dev)
+    res = window_ba.optimize(cfg, cam, interop.from_numpy(
+        window, window_ba.empty(cfg, device="cpu"), interop.to_torch(dev)))
+    assert [r[:2] for r in ranks] == [("cuda:0", "gloo")] * 2
+    lm = np.concatenate([r[3] for r in ranks])
+    live = window["lm_valid"]
+    np.testing.assert_allclose(ranks[0][2], res.state.kf_t.cpu().numpy(), atol=5e-4, rtol=0)
+    np.testing.assert_allclose(lm[live], res.state.lm_pw.cpu().numpy()[live], atol=5e-3,
+                               rtol=0)
+    np.testing.assert_array_equal(ranks[0][2], ranks[1][2])
+    np.testing.assert_array_equal(ranks[0][4], ranks[1][4])

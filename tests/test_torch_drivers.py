@@ -86,5 +86,7 @@ def test_run_multiseq(capsys):
     seqs = re.findall(r"seq (\d): ATE +([\d.]+) cm over ([\d.]+) m \(ok\)  loops=(\d+)", out)
     assert len(seqs) == 2
     assert all(int(loops) >= 1 for *_, loops in seqs)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        run_multiseq.main(["--cpu", "--mesh"])
+    # --mesh in one process: a mesh of one rank holding both sequences.
+    assert run_multiseq.main(["--cpu", "--mesh", "--seqs", "2", "--frames", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "RESULT: PASS" in out and len(re.findall(r"seq \d: ATE", out)) == 2

@@ -262,7 +262,29 @@ def test_batched_tracking_matches_single_sequence(scene):
     assert torch.equal(out.status, torch.stack([one_outs.status[0]] * S))
 
 
-def test_mesh_not_ported_raises():
-    cam = tcam.make(*CAM_ARGS, width=SCFG.width, height=SCFG.height, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        MultiSeqSlam(_cfg(tconfig), cam, num_seqs=S, mesh=object(), device="cpu")
+def test_mesh_not_ported_raises(runs, scene):
+    """MultiSeqSlam(mesh=) is ported (the name is kept from when it raised):
+    over a `seq` mesh of one rank it holds every sequence and gives the
+    unmeshed run's trajectories, closures and loop-corrected centres bit
+    for bit (2 ranks: tests/test_torch_multihost.py)."""
+    from flvis_tpu_torch.parallel import mesh as mesh_m
+
+    _, tms, _ = runs
+    mp = pytest.MonkeyPatch()
+    try:
+        _jax_draws(mp)
+        ms = MultiSeqSlam(_cfg(tconfig), tcam.make(*CAM_ARGS, width=SCFG.width,
+                                                   height=SCFG.height, device="cpu"),
+                          num_seqs=S, use_loop=True,
+                          mesh=mesh_m.Mesh("seq", 1, 0, torch.device("cpu")))
+        _drive(ms, scene, False, 0)
+    finally:
+        mp.undo()
+    assert list(ms.seqs) == list(range(S))
+    for s in range(S):
+        assert _pairs(ms.loopers[s]) == _pairs(tms.loopers[s])
+        np.testing.assert_array_equal(
+            np.asarray([t for (*_, t) in ms.trajectories[s]]),
+            np.asarray([t for (*_, t) in tms.trajectories[s]]))
+        np.testing.assert_array_equal(ms.trajectory_cam_centers(s, loop_corrected=True),
+                                      tms.trajectory_cam_centers(s, loop_corrected=True))

@@ -77,7 +77,10 @@ def test_closure_reaches_the_shared_modules():
                 "flvis_tpu_torch/utils/profiling.py", "flvis_tpu_torch/run_dataset.py",
                 "flvis_tpu_torch/utils/checkpoint.py", "flvis_tpu_torch/viz/cloud.py",
                 "flvis_tpu_torch/viz/overlay.py", "flvis_tpu_torch/io/native_loader.py",
-                "flvis_tpu_torch/run_synthetic_vo.py", "flvis_tpu_torch/run_multiseq.py"):
+                "flvis_tpu_torch/run_synthetic_vo.py", "flvis_tpu_torch/run_multiseq.py",
+                "flvis_tpu_torch/entry.py", "flvis_tpu_torch/parallel/mesh.py",
+                "flvis_tpu_torch/parallel/multihost.py", "flvis_tpu_torch/parallel/dist_ba.py",
+                "flvis_tpu_torch/parallel/dist_loop.py", "flvis_tpu_torch/pipeline/overlap.py"):
         assert own in files, own
 
 

@@ -138,12 +138,24 @@ def test_ate_and_backend_state(runs):
 
 
 def test_unported_options_raise():
-    """The loop node on a device of its own is the one option still to
-    port (output_sparse_map is ported: test_sparse_map_matches)."""
+    """loop_device, the last option that raised, is ported (the name is kept
+    from then): the whole loop node — its tables, camera and PGO — is placed
+    on the loop device, and a chunk's keyframes reach it there (closures:
+    tests/test_torch_overlap.py)."""
     scfg = SceneConfig()
-    cam = tcam.make(scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        trunner.SlamSystem(_cfg(scfg), cam, device="cpu", loop_device="cpu")
+    cam = tcam.make(scfg.fx, scfg.fy, scfg.cx, scfg.cy, scfg.baseline, width=scfg.width,
+                    height=scfg.height, device="cpu")
+    sys_ = trunner.SlamSystem(_cfg(scfg, kf_min_trans=0.02), cam, device="cpu", use_loop=True,
+                              loop_device="cpu")
+    lc = sys_.loop_closer
+    cpu = torch.device("cpu")
+    assert sys_.loop_device == lc.device == lc.pgo_device == cpu
+    assert lc.bow_db.device == lc.kf_desc.device == lc.kf_q.device == lc.cam.fx.device == cpu
+    scene = PlanarScene(scfg, plane_depth=8.0, seed=0)
+    frames = [scene.render(R, t)[:2] for (R, t) in orbit_trajectory(8, step=0.03)]
+    sys_.process_frames(np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames]))
+    sys_.flush_loop()
+    assert lc.count == len(sys_.keyframes) >= 2
 
 
 def _assert_same_cloud(tsys, jsys):
