@@ -27,6 +27,7 @@ import torch
 
 from ..ops.kernels.bowassign import bow_tf
 from ..ops.orb import pack_pm1, unpack_pm1
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,25 +55,32 @@ def train(descriptors_packed, valid, num_words: int = 1024, iters: int = 8, seed
     descriptors.  init_idx (num_words,) picks the initial centroids among
     the valid rows; without it they are drawn from a torch.Generator seeded
     with `seed` (with replacement when there are fewer rows than words)."""
-    valid = torch.as_tensor(valid, device=descriptors_packed.device)
-    if not bool(valid.all()):
-        descriptors_packed = descriptors_packed[valid]
+    dev = descriptors_packed.device
+    host = not torch.is_tensor(valid) or valid.device.type == "cpu"
+    with profiling.host_sync("bow.train_upload", int(host)):    # from pageable host memory
+        valid = torch.as_tensor(valid, device=dev)
+    if not bool(profiling.host_read(valid.all(), site="bow.train_valid")):
+        with profiling.host_sync("bow.train_select"):        # a boolean selection's size
+            descriptors_packed = descriptors_packed[valid]
     d = unpack_pm1(descriptors_packed)                # (N, 256)
     n = d.shape[0]
     if init_idx is None:
         g = torch.Generator().manual_seed(seed)
         init_idx = (torch.randint(n, (num_words,), generator=g) if n < num_words
                     else torch.randperm(n, generator=g)[:num_words])
-    c = d[torch.as_tensor(init_idx, device=d.device).long()]
+    with profiling.host_sync("bow.train_upload"):
+        c = d[torch.as_tensor(init_idx, device=d.device).long()]
     for _ in range(iters):
         assign = _assign(d, c)
         sums = torch.zeros_like(c).index_add_(0, assign, d)
-        counts = torch.bincount(assign, minlength=num_words)[:, None]
+        with profiling.host_sync("bow.bincount"):         # bincount reads the largest index
+            counts = torch.bincount(assign, minlength=num_words)[:, None]
         c = torch.where(counts > 0, torch.sign(sums + 0.5), c)
     df = torch.zeros(num_words, device=d.device).index_add_(
         0, _assign(d, c), torch.ones(n, device=d.device))
-    idf = torch.log(torch.clamp(torch.tensor(float(n), device=d.device), min=1.0)
-                    / torch.clamp(df, min=1.0))
+    with profiling.host_sync("bow.train_upload"):
+        n_t = torch.tensor(float(n), device=d.device)
+    idf = torch.log(torch.clamp(n_t, min=1.0) / torch.clamp(df, min=1.0))
     return Vocabulary(c, idf)
 
 

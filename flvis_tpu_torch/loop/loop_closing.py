@@ -77,6 +77,7 @@ from ..geometry.se3 import SE3
 from ..ops import image as imops, orb, pnp, stereo
 from ..ops.kernels import hamming
 from ..parallel import dist_loop, mesh as mesh_m
+from ..utils import profiling
 from ..utils.tree import tree_map
 from . import bow, pose_graph
 
@@ -121,7 +122,8 @@ def _gate_row(db, valid_rows, k: int, lo: int, hi: int, nb_dist: int):
     in_win = (idxs >= lo) & (idxs < hi)
     sims_w = torch.where(in_win, sims, -torch.inf)
     cand = torch.argmax(sims_w)
-    best = sims_w[cand]
+    with profiling.host_sync("loop.gate_index"):        # a 0-d index tensor is read as an int
+        best = sims_w[cand]
     recent = (idxs >= hi) & (idxs < k) & (sims > 0.001)
     lc_min = torch.clamp(torch.min(torch.where(recent, sims, 1.0)), max=0.4)
     nb = in_win & (torch.abs(idxs - cand) <= nb_dist) & (idxs != cand)
@@ -326,8 +328,10 @@ class LoopCloser:
         c0 = self.count
         for i, f in enumerate(sel):
             self._ingest_row(c0 + i, imgs_l[int(f)], imgs_r[int(f)])
-        self._set_pose_rows(c0, SE3(torch.as_tensor(np.asarray(q, np.float32)),
-                                    torch.as_tensor(np.asarray(t, np.float32))))
+        with profiling.host_sync("loop.pose_rows", 2):
+            q_t = (torch.as_tensor(np.asarray(q, np.float32), device=self.device),
+                   torch.as_tensor(np.asarray(t, np.float32), device=self.device))
+        self._set_pose_rows(c0, SE3(*q_t))
         if self.vocab is None:
             self._desc_buffer.append((self.kf_desc[c0:c0 + M], self.kf_kp_valid[c0:c0 + M]))
         else:
@@ -444,14 +448,17 @@ class LoopCloser:
     def _train_vocab(self):
         """Train the vocabulary from the buffered keyframes once they hold at
         least vocab_words/2 descriptors, then back-fill every stored row."""
-        all_desc = torch.cat([d[v] for d, v in self._desc_buffer])
-        if all_desc.shape[0] < self.cfg.vocab_words // 2:
-            return
-        self.vocab = bow.train(all_desc, torch.ones(all_desc.shape[0], dtype=torch.bool),
-                               num_words=self.cfg.vocab_words, iters=6)
-        self._in_run_vocab = True
-        self._desc_buffer.clear()
-        self._set_db_rows(0, self.count)
+        with profiling.span("vocab.train", keyframes=self.count):
+            # Each boolean selection waits for the device (its size).
+            with profiling.host_sync("loop.vocab_select", len(self._desc_buffer)):
+                all_desc = torch.cat([d[v] for d, v in self._desc_buffer])
+            if all_desc.shape[0] < self.cfg.vocab_words // 2:
+                return
+            self.vocab = bow.train(all_desc, torch.ones(all_desc.shape[0], dtype=torch.bool),
+                                   num_words=self.cfg.vocab_words, iters=6)
+            self._in_run_vocab = True
+            self._desc_buffer.clear()
+            self._set_db_rows(0, self.count)
 
     def _maybe_refresh_vocab(self):
         """Retrain the in-run vocabulary on a fixed 8192-descriptor sample
@@ -462,14 +469,18 @@ class LoopCloser:
                 or self.count < self._next_vocab_refresh):
             return
         n = self.count
-        all_desc = self.kf_desc[:n][self.kf_kp_valid[:n]]
-        sel = np.random.default_rng(n).choice(all_desc.shape[0], 8192,
-                                              replace=all_desc.shape[0] < 8192)
-        all_desc = all_desc[torch.as_tensor(sel, device=all_desc.device)]
-        self.vocab = bow.train(all_desc, torch.ones(8192, dtype=torch.bool),
-                               num_words=cfg.vocab_words, iters=6, seed=1)
-        self._set_db_rows(0, n)
-        self._next_vocab_refresh = max(self._next_vocab_refresh * 2, n + 1)
+        with profiling.span("vocab.refresh", keyframes=n):
+            with profiling.host_sync("loop.vocab_select"):
+                all_desc = self.kf_desc[:n][self.kf_kp_valid[:n]]
+            sel = np.random.default_rng(n).choice(all_desc.shape[0], 8192,
+                                                  replace=all_desc.shape[0] < 8192)
+            with profiling.host_sync("loop.vocab_sample"):
+                sel = torch.as_tensor(sel, device=all_desc.device)
+            all_desc = all_desc[sel]
+            self.vocab = bow.train(all_desc, torch.ones(8192, dtype=torch.bool),
+                                   num_words=cfg.vocab_words, iters=6, seed=1)
+            self._set_db_rows(0, n)
+            self._next_vocab_refresh = max(self._next_vocab_refresh * 2, n + 1)
 
     # --------------------------------------------------------------- search
     def detect_loop(self, k: int) -> Optional[LoopClosure]:
@@ -519,24 +530,30 @@ class LoopCloser:
         database's ("sync", ks), ("done", accepted closures) at once."""
         if pending is None:
             return None
-        if pending[0] == "sync":
-            return ("done", [lc for k in pending[1]
-                             for lc in (self._detect_sharded(k),) if lc is not None])
-        _, ks, los, his, rows_dev = pending
-        rows = rows_dev.cpu().numpy() if rows_np is None else rows_np
-        cands = [(cand, k) for k, lo, hi, row in zip(ks, los, his, rows)
-                 for cand in (_gate_decision(row, lo, hi, self.cfg),) if cand is not None]
-        if not cands:
-            return None
-        # Buckets of up to VERIFY_BUCKET real pairs.  The reference pads the
-        # last bucket with its last pair to its compiled shape; the loop node
-        # runs eagerly here, outside the captured frame step, so a bucket
-        # takes any size and the padding's matcher/EPnP work is left out.
-        stats = []
-        for b0 in range(0, len(cands), VERIFY_BUCKET):
-            bucket = cands[b0:b0 + VERIFY_BUCKET]
-            stats.append(self._verify_device_batch([i for i, _ in bucket], [j for _, j in bucket]))
-        return ("verify", cands, torch.cat(stats))
+        with profiling.span("loop.verify", pairs=0, buckets=0) as sp:
+            if pending[0] == "sync":
+                sp.set(pairs=len(pending[1]), buckets=len(pending[1]))
+                return ("done", [lc for k in pending[1]
+                                 for lc in (self._detect_sharded(k),) if lc is not None])
+            _, ks, los, his, rows_dev = pending
+            rows = (profiling.host_read(rows_dev, site="loop.gate_rows") if rows_np is None
+                    else rows_np)
+            cands = [(cand, k) for k, lo, hi, row in zip(ks, los, his, rows)
+                     for cand in (_gate_decision(row, lo, hi, self.cfg),) if cand is not None]
+            if not cands:
+                return None
+            # Buckets of up to VERIFY_BUCKET real pairs.  The reference pads
+            # the last bucket with its last pair to its compiled shape; the
+            # loop node runs eagerly here, outside the captured frame step, so
+            # a bucket takes any size and the padding's matcher/EPnP work is
+            # left out.
+            stats = []
+            for b0 in range(0, len(cands), VERIFY_BUCKET):
+                bucket = cands[b0:b0 + VERIFY_BUCKET]
+                stats.append(self._verify_device_batch([i for i, _ in bucket],
+                                                       [j for _, j in bucket]))
+            sp.set(pairs=len(cands), buckets=len(stats))
+            return ("verify", cands, torch.cat(stats))
 
     def pending_verify_arrays(self, handle):
         """The device statistics inside a dispatch_verify handle, or None."""
@@ -551,9 +568,13 @@ class LoopCloser:
         if handle[0] == "done":
             return handle[1]
         _, cands, stats_dev = handle
-        stats = stats_dev.cpu().numpy() if stats is None else stats
-        return [lc for (i, j), row in zip(cands, stats)
-                for lc in (self._verify_accept(i, j, row),) if lc is not None]
+        with profiling.span("loop.accept", pairs=len(cands)) as sp:
+            if stats is None:
+                stats = profiling.host_read(stats_dev, site="loop.verify_stats")
+            out = [lc for (i, j), row in zip(cands, stats)
+                   for lc in (self._verify_accept(i, j, row),) if lc is not None]
+            sp.set(accepted=len(out))
+            return out
 
     def _detect_sharded(self, k: int) -> Optional[LoopClosure]:
         """The candidate gate of query k on the sharded database, resolved at
@@ -565,8 +586,8 @@ class LoopCloser:
         own = dist_loop.row_range(self.mesh, self.bow_db)
         valid = torch.arange(own.start, own.stop, device=self.device) < self.count
         query = dist_loop.get_row(self.mesh, self.bow_db, k)
-        sims = dist_loop.score_database_sharded(self.mesh, query, self.bow_db,
-                                                valid)[:self.count].cpu().numpy()
+        sims = profiling.host_read(dist_loop.score_database_sharded(
+            self.mesh, query, self.bow_db, valid)[:self.count], site="loop.sharded_scores")
         hi = k - cfg.kf_dist
         lo = max(0, hi - cfg.search_window)
         if hi <= lo:
@@ -587,7 +608,8 @@ class LoopCloser:
     def _verify(self, i: int, j: int) -> Optional[LoopClosure]:
         """Verification of one candidate pair, resolved at once: a bucket of
         one through _verify_device_batch, then the accept gates."""
-        return self._verify_accept(i, j, self._verify_device(i, j).cpu().numpy())
+        return self._verify_accept(i, j, profiling.host_read(self._verify_device(i, j),
+                                                             site="loop.verify_stats"))
 
     def _verify_device(self, i: int, j: int):
         """Geometric verification of candidate pair (i, j): a bucket of one.
@@ -669,11 +691,13 @@ class LoopCloser:
             ev.append(a + s < wn)
             ew.append(torch.full((n_pad,), 1.0 / s, device=dev))
         L = loop_i.shape[0]
-        ei.append(torch.as_tensor(loop_i - i0, device=dev))
-        ej.append(torch.as_tensor(loop_j - i0, device=dev))
-        eq.append(torch.as_tensor(loop_q, device=dev))
-        et.append(torch.as_tensor(loop_t, device=dev))
-        ev.append(torch.as_tensor(loop_valid, device=dev))
+        # Five uploads from pageable host memory: each waits for the device.
+        with profiling.host_sync("pgo.loop_edges", 5):
+            ei.append(torch.as_tensor(loop_i - i0, device=dev))
+            ej.append(torch.as_tensor(loop_j - i0, device=dev))
+            eq.append(torch.as_tensor(loop_q, device=dev))
+            et.append(torch.as_tensor(loop_t, device=dev))
+            ev.append(torch.as_tensor(loop_valid, device=dev))
         ew.append(torch.full((L,), 5.0, device=dev))
         return pose_graph.PoseGraph(
             node_q=self.kf_q[rows], node_t=self.kf_t[rows], node_valid=a < wn,
@@ -699,7 +723,14 @@ class LoopCloser:
     def optimize_graph(self):
         """Pose-graph optimisation over the loop window [first loop i, last
         loop j] with sequential edges + the accumulated loop edges (thinned to
-        cfg.pgo_max_loop_edges), throttled as the reference throttles it."""
+        cfg.pgo_max_loop_edges), throttled as the reference throttles it.
+        Each call is a `pgo` span: route (dense, banded, or throttled when
+        it returns without a solve), nodes (the padded window), window,
+        loop_edges, and the LM's lm_iters and lm_rejects."""
+        with profiling.span("pgo", route="throttled") as sp:
+            self._optimize_graph(sp)
+
+    def _optimize_graph(self, sp):
         cfg = self.cfg
         n = self.count
         if not self.closures or n < 2:
@@ -724,6 +755,7 @@ class LoopCloser:
         loop_q = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (loop_pad, 1))
         loop_t = np.zeros((loop_pad, 3), np.float32)
         loop_valid = np.zeros(loop_pad, bool)
+        # A closure's T_ij lives on the host (_verify_accept): no device read.
         for e, lc in enumerate(closures):
             loop_i[e], loop_j[e] = lc.kf_i, lc.kf_j
             loop_q[e] = lc.T_ij.q.cpu().numpy()
@@ -732,19 +764,24 @@ class LoopCloser:
         g = self._build_graph(i0, wn, loop_i, loop_j, loop_q, loop_t, loop_valid,
                               n_pad, cfg.seq_edge_successors)
         fixed = torch.zeros(n_pad, dtype=torch.bool, device=self.device)
-        fixed[0] = True
+        with profiling.host_sync("pgo.fixed"):          # the scalar is uploaded from the host
+            fixed[0] = True
         if self.dump_dir is not None:
             self._dump_graph(f"{self.count:05d}_before")
         if self.pgo_device is not None:
             g = tree_map(lambda a: a.to(self.pgo_device), g)
             fixed = fixed.to(self.pgo_device)
+        sp.set(route="banded" if n_pad > _BANDED_THRESHOLD else "dense", nodes=n_pad,
+               window=wn, loop_edges=L)
         if n_pad > _BANDED_THRESHOLD:
             # _build_graph puts the n_succ·n_pad sequential edges first: the band.
-            g2, _ = pose_graph.optimize_banded(
+            solved = pose_graph.optimize_banded(
                 g, fixed, band_edges=cfg.seq_edge_successors * n_pad,
                 iters=min(cfg.pgo_iters, 20))
         else:
-            g2, _ = pose_graph.optimize(g, fixed, iters=min(cfg.pgo_iters, 30))
+            solved = pose_graph.optimize(g, fixed, iters=min(cfg.pgo_iters, 30))
+        g2 = solved[0]
+        sp.set(lm_iters=solved.lm_iters, lm_rejects=solved.lm_rejects)
         # The solved poses back next to the pose tables.
         self._apply_pgo(g2.node_q.to(self.device), g2.node_t.to(self.device), i0, wn, n)
         self._last_pgo_id = j1

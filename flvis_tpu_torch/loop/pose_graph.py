@@ -16,7 +16,10 @@ per iteration):
 Both assemble their normal systems in a fixed order with no float atomics
 (`_sum_plan`, built once per call), so a graph optimised twice on the card
 gives the same bits.  The Thomas steps and the Woodbury solve use
-`torch.linalg.solve_ex`, which reads no error flag back to the host.
+`torch.linalg.solve_ex`, which reads no error flag back to the host.  Both
+return a `Solved`: (graph, cost), with the LM loop's iterations and
+rejected steps by name; the loop's host reads go through
+utils/profiling.host_read.
 """
 
 from __future__ import annotations
@@ -28,6 +31,19 @@ from torch.func import jacfwd, vmap
 
 from ..geometry import se3 as se3m, so3
 from ..geometry.se3 import SE3
+from ..utils import profiling
+
+
+class Solved(tuple):
+    """What optimize and optimize_banded return: the pair (graph, final
+    cost), with the LM loop's counts `lm_iters` (solves) and `lm_rejects`
+    (rejected steps) as attributes beside it, as os.stat_result keeps fields
+    past its tuple."""
+
+    def __new__(cls, graph, cost, lm_iters: int, lm_rejects: int):
+        self = super().__new__(cls, (graph, cost))
+        self.lm_iters, self.lm_rejects = lm_iters, lm_rejects
+        return self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +119,7 @@ def _sum_plan(keys, width: int | None = None):
     ar = torch.arange(n, device=keys.device)
     pos = ar - torch.cummax(torch.where(new, ar, 0), 0).values
     if width is None:
-        width = int(torch.max(pos)) + 1
+        width = int(profiling.host_read(torch.max(pos), site="pgo.plan_width")) + 1
     table = torch.full((n, width), n, dtype=torch.int64, device=keys.device)
     table[gid, pos] = order
     group_key = torch.full((n,), -1, dtype=torch.int64, device=keys.device)
@@ -165,7 +181,7 @@ def _gradient(b_plan, r, JiW, JjW, K: int):
 def optimize(graph: PoseGraph, fixed_mask, iters: int = 20, cauchy_c: float = 1.0,
              lam0: float = 1e-4):
     """LM on the pose graph; fixed_mask (K,) holds nodes constant.  Returns
-    (updated graph, final cost)."""
+    a Solved: (updated graph, final cost) and the LM loop's counts."""
     K = graph.num_nodes
     fix = torch.repeat_interleave(fixed_mask | ~graph.node_valid, 6)
     h_plan, b_plan = _assembly_plan(graph.edge_i.long(), graph.edge_j.long(), K)
@@ -186,12 +202,14 @@ def optimize(graph: PoseGraph, fixed_mask, iters: int = 20, cauchy_c: float = 1.
     def solve(nodes: SE3, lin, lam):
         Hd, diag, bv = lin
         Hd = Hd + torch.diag(torch.where(fix, 1.0, lam * torch.clamp(diag, min=1e-6) + 1e-9))
-        dx = torch.linalg.solve(Hd, bv).reshape(K, 6)
+        with profiling.host_sync("pgo.solve_check"):       # linalg.solve reads its error flag
+            dx = torch.linalg.solve(Hd, bv).reshape(K, 6)
         return se3m.compose(nodes, se3m.exp(dx)), torch.max(torch.abs(dx))
 
-    nodes, cost = _lm_outer_loop(linearize, solve, total_cost,
-                                 SE3(graph.node_q, graph.node_t), lam0, iters)
-    return dataclasses.replace(graph, node_q=nodes.q, node_t=nodes.t), cost
+    nodes, cost, n_iter, n_rej = _lm_outer_loop(linearize, solve, total_cost,
+                                                SE3(graph.node_q, graph.node_t), lam0, iters)
+    return Solved(dataclasses.replace(graph, node_q=nodes.q, node_t=nodes.t), cost,
+                  n_iter, n_rej)
 
 
 def _lm_outer_loop(linearize, solve, total_cost, nodes0: SE3, lam0: float, iters: int):
@@ -199,18 +217,26 @@ def _lm_outer_loop(linearize, solve, total_cost, nodes0: SE3, lam0: float, iters
     an accepted step that improves the cost by < 1e-4 relative or moves
     < 5e-3, or after 2 consecutive rejections once a step was accepted (or
     λ reached its 1e4 cap); a rejected step re-damps the stored system.
-    λ stays a float32 tensor so its products round as the reference's."""
+    λ stays a float32 tensor so its products round as the reference's.
+    Returns (nodes, cost, iterations, rejected steps)."""
     dev = nodes0.t.device
+
+    def read(t) -> bool:
+        return bool(profiling.host_read(t, site="pgo.lm"))
+
     nodes, lin = nodes0, linearize(nodes0)
-    lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
+    with profiling.host_sync("pgo.lambda"):         # an upload from pageable host memory
+        lam = torch.tensor(lam0, dtype=torch.float32, device=dev)
     cost = total_cost(nodes0)
     rej, acc_any = 0, False
+    n_iter = n_rej = 0
     for it in range(iters):
         new_nodes, dx_inf = solve(nodes, lin, lam)
         new_cost = total_cost(new_nodes)
-        better = bool(new_cost < cost)
+        n_iter += 1
+        better = read(new_cost < cost)
         if better:
-            done = (bool(cost - new_cost < 1e-4 * cost) or bool(dx_inf < 5e-3))
+            done = read(cost - new_cost < 1e-4 * cost) or read(dx_inf < 5e-3)
             nodes, cost = new_nodes, new_cost
             lam = torch.clamp(lam * 0.3, min=1e-8)
             rej, acc_any = 0, True
@@ -221,9 +247,10 @@ def _lm_outer_loop(linearize, solve, total_cost, nodes0: SE3, lam0: float, iters
         else:
             lam = torch.clamp(lam * 6.0, max=1e4)
             rej += 1
-            if rej >= 2 and (acc_any or bool(lam >= 1e4)):
+            n_rej += 1
+            if rej >= 2 and (acc_any or read(lam >= 1e4)):
                 break
-    return nodes, cost
+    return nodes, cost, n_iter, n_rej
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +320,7 @@ def optimize_banded(graph: PoseGraph, fixed_mask, band_edges: int, iters: int = 
     [0:band_edges] are band edges with edge_i ≤ edge_j ≤ edge_i + _SUPER;
     edges [band_edges:] are loop edges between any pair (Woodbury columns:
     keep the bucket small).  num_nodes must be a multiple of _SUPER.
-    Returns (updated graph, final cost)."""
+    Returns a Solved, as optimize does."""
     K = graph.num_nodes
     s = _SUPER
     assert K % s == 0, "pad node count to a multiple of _SUPER"
@@ -361,6 +388,7 @@ def optimize_banded(graph: PoseGraph, fixed_mask, band_edges: int, iters: int = 
         dx = torch.where(held[:, None], 0.0, dx)
         return se3m.compose(nodes, se3m.exp(dx)), torch.max(torch.abs(dx))
 
-    nodes, cost = _lm_outer_loop(linearize, solve, total_cost,
-                                 SE3(graph.node_q, graph.node_t), lam0, iters)
-    return dataclasses.replace(graph, node_q=nodes.q, node_t=nodes.t), cost
+    nodes, cost, n_iter, n_rej = _lm_outer_loop(linearize, solve, total_cost,
+                                                SE3(graph.node_q, graph.node_t), lam0, iters)
+    return Solved(dataclasses.replace(graph, node_q=nodes.q, node_t=nodes.t), cost,
+                  n_iter, n_rej)

@@ -22,6 +22,7 @@ from . import image as imops
 from .kernels import hamming
 from .kernels.fastblur import CIRCLE, fast_score_nms_blur
 from .kernels.hamming import hamming_matrix
+from ..utils import profiling
 
 __all__ = ["fast_score", "orientations_from_patches", "brief_from_patches",
            "detect_and_compute", "hamming_matrix", "unpack_pm1", "pack_pm1",
@@ -62,7 +63,8 @@ def orientations_from_patches(patches, radius: int | None = None):
         radius = (S - 1) // 2
     c = (S - (2 * radius + 1)) // 2
     p = patches[:, c:c + 2 * radius + 1, c:c + 2 * radius + 1]
-    kx, ky = (torch.as_tensor(k, device=patches.device) for k in _moment_kernels(radius))
+    with profiling.host_sync("orb.constants", 2):       # uploads from pageable host memory
+        kx, ky = (torch.as_tensor(k, device=patches.device) for k in _moment_kernels(radius))
     m10 = torch.einsum("nyx,yx->n", p, kx)
     m01 = torch.einsum("nyx,yx->n", p, ky)
     return torch.atan2(m01, m10)
@@ -103,7 +105,8 @@ def brief_from_patches(patches, angles):
     the 512 rotated sample points are read inside the patches with bilinear
     hat weights."""
     r = (patches.shape[-1] - 1) // 2
-    pat = torch.as_tensor(_PATTERN, device=patches.device)
+    with profiling.host_sync("orb.constants"):
+        pat = torch.as_tensor(_PATTERN, device=patches.device)
     ca, sa = torch.cos(angles), torch.sin(angles)
     xs = torch.cat([pat[:, 0], pat[:, 2]])
     ys = torch.cat([pat[:, 1], pat[:, 3]])

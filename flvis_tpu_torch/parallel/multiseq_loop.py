@@ -54,6 +54,7 @@ from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..loop.loop_closing import LoopCloser
 from ..pipeline import runner as runner_m
+from ..utils import profiling
 from ..utils.tree import tree_map
 from . import multihost, multiseq
 
@@ -105,8 +106,8 @@ class MultiSeqSlam:
                            for _ in range(n_local)]
         self.loopers: list = [LoopCloser(cfg.loop, c, device=self.device) if use_loop else None
                               for c in self.cams]
-        self.stages = [runner_m.LoopStage(lc) if lc is not None else None
-                       for lc in self.loopers]
+        self.stages = [runner_m.LoopStage(lc, seq=s) if lc is not None else None
+                       for s, lc in zip(self.seqs, self.loopers)]
         self._frames = 0
         self.trajectories: list = [[] for _ in range(n_local)]    # a held sequence's frames
         self.ba_costs: list = [[] for _ in range(n_local)]   # a frame's window BA cost (0: none)
@@ -119,11 +120,15 @@ class MultiSeqSlam:
 
     def _to_device(self, a, dtype=None):
         """(S, …) inputs → this process's block on the device (inputs of
-        the block's size pass as they are)."""
+        the block's size pass as they are).  An upload from host memory
+        waits for the device (a counted host sync)."""
         if len(a) == self.S and len(self.seqs) != self.S:
             a = a[self.seqs.start:self.seqs.stop]
+        if isinstance(a, torch.Tensor) and a.device == self.device:
+            return a.to(dtype=dtype)
         t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-        return t.to(self.device, dtype)
+        with profiling.host_sync("multiseq.upload"):
+            return t.to(self.device, dtype)
 
     # ---------------------------------------------------------------- steps
     def _carries(self, vio: bool):
@@ -183,8 +188,10 @@ class MultiSeqSlam:
     def _run_chunk_eager(self, kind: str, seq_xs):
         """_run_chunk through the eager loop over the same step, on the
         same draws."""
-        carries, rows = multiseq.run_chunk_eager(self._step(kind), self._carries(kind == "vio"),
-                                                 self._frame_major(seq_xs), self._draw)
+        with profiling.span("step.run", replays=seq_xs[0].shape[1]):
+            carries, rows = multiseq.run_chunk_eager(self._step(kind),
+                                                     self._carries(kind == "vio"),
+                                                     self._frame_major(seq_xs), self._draw)
         self._set_carries(kind == "vio", carries)
         return rows.transpose(0, 1), None
 
@@ -194,24 +201,30 @@ class MultiSeqSlam:
         per-sequence loop stage.  Returns the (S, T, 12) packed host outputs
         (columns as runner._pack_outputs) — with a mesh, the rank's block's
         rows, (S/n, T, 12)."""
-        if ts is not None and len(ts) == self.S:
-            ts = np.asarray(ts)[self.seqs.start:self.seqs.stop]
-        imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
-        rows, cap = self._run_chunk("stereo", (imgs0, imgs1))
-        return self._after_dispatch(rows, cap, imgs0, imgs1, ts)
+        cid = profiling.new_chunk()
+        with profiling.span("chunk", chunk=cid, frames=np.shape(imgs0)[1], seqs=len(self.seqs)):
+            if ts is not None and len(ts) == self.S:
+                ts = np.asarray(ts)[self.seqs.start:self.seqs.stop]
+            with profiling.span("chunk.upload"):
+                imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
+            rows, cap = self._run_chunk("stereo", (imgs0, imgs1))
+            return self._after_dispatch(rows, cap, imgs0, imgs1, ts, cid)
 
     def process_chunk_vio(self, imgs0, imgs1, ts, acc, gyro, imu_t, imu_valid):
         """VIO variant: (S, T) image times plus (S, T, P, ·) packed per-frame
         IMU batches (runner.pack_imu_frames per sequence)."""
-        if len(ts) == self.S:
-            ts = np.asarray(ts)[self.seqs.start:self.seqs.stop]
-        imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
-        f = torch.float32
-        rows, cap = self._run_chunk("vio", (
-            imgs0, imgs1, self._to_device(ts, f), self._to_device(acc, f),
-            self._to_device(gyro, f), self._to_device(imu_t, f),
-            self._to_device(imu_valid, torch.bool)))
-        return self._after_dispatch(rows, cap, imgs0, imgs1, ts)
+        cid = profiling.new_chunk()
+        with profiling.span("chunk", chunk=cid, frames=np.shape(imgs0)[1], seqs=len(self.seqs)):
+            if len(ts) == self.S:
+                ts = np.asarray(ts)[self.seqs.start:self.seqs.stop]
+            f = torch.float32
+            with profiling.span("chunk.upload"):
+                imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
+                xs = (imgs0, imgs1, self._to_device(ts, f), self._to_device(acc, f),
+                      self._to_device(gyro, f), self._to_device(imu_t, f),
+                      self._to_device(imu_valid, torch.bool))
+            rows, cap = self._run_chunk("vio", xs)
+            return self._after_dispatch(rows, cap, imgs0, imgs1, ts, cid)
 
     def _after_dispatch(self, *chunk):
         """Synchronous mode finishes the chunk now; pipelined mode keeps it
@@ -222,35 +235,41 @@ class MultiSeqSlam:
         return self._finish(*prev) if prev is not None else None
 
     # ----------------------------------------------------------- loop stage
-    def _finish(self, rows_dev, cap, imgs0, imgs1, ts):
+    def _finish(self, rows_dev, cap, imgs0, imgs1, ts, cid=None):
         """A chunk's end: ONE host fetch of the packed rows, the captured
         step's taken counts and every sequence's pending gate rows and
         verification statistics; then per sequence the loop stage's
         resolve, the trajectory log, and the chunk's keyframes into its
-        loop node."""
+        loop node.  Its spans carry the chunk's own id `cid`, also where a
+        pipelined chunk's end runs inside the next chunk's call."""
         S, T = imgs0.shape[0], imgs0.shape[1]
-        pending = [st.pending() if st is not None else (None, None) for st in self.stages]
-        fetched = runner_m.fetch(rows_dev, cap.step.taken if cap is not None else None,
-                                 *[a for p in pending for a in p])
-        packed = np.ascontiguousarray(fetched[0][..., :12])
-        if cap is not None:
-            cap.step.settle(fetched[1])
-        for s, st in enumerate(self.stages):
-            if st is not None:
-                st.resolve(fetched[2 + 2 * s], fetched[3 + 2 * s])
-        first = self._frames
-        self._frames += T
-        ts_np = None if ts is None else np.asarray(ts, np.float64)
-        for s in range(S):
-            for i in range(T):
-                self.trajectories[s].append(
-                    (first + i, float(ts_np[s, i]) if ts_np is not None else 0.0,
-                     packed[s, i, 5:9].copy(), packed[s, i, 9:12].copy()))
-            self.ba_costs[s].extend(fetched[0][s, :, 12].tolist())
-            if self.stages[s] is not None:
-                kf_idx = [i for i in range(T) if packed[s, i, 0] > 0.5]
-                self.stages[s].ingest(imgs0[s], imgs1[s], kf_idx, packed[s, kf_idx, 5:9],
-                                      packed[s, kf_idx, 9:12], [first + i for i in kf_idx])
+        with profiling.span("chunk.end", chunk=cid, frames=T):
+            with profiling.span("chunk.fetch") as sp:
+                pending = [st.pending() if st is not None else (None, None)
+                           for st in self.stages]
+                fetched = runner_m.fetch(rows_dev, cap.step.taken if cap is not None else None,
+                                         *[a for p in pending for a in p])
+                if cap is not None:
+                    sp.set(**cap.step.settle(fetched[1]))
+                    cap.settle_stream()
+            packed = np.ascontiguousarray(fetched[0][..., :12])
+            for s, st in enumerate(self.stages):
+                if st is not None:
+                    st.resolve(fetched[2 + 2 * s], fetched[3 + 2 * s])
+            first = self._frames
+            self._frames += T
+            ts_np = None if ts is None else np.asarray(ts, np.float64)
+            for s in range(S):
+                with profiling.span("chunk.log", seq=self.seqs[s]):
+                    for i in range(T):
+                        self.trajectories[s].append(
+                            (first + i, float(ts_np[s, i]) if ts_np is not None else 0.0,
+                             packed[s, i, 5:9].copy(), packed[s, i, 9:12].copy()))
+                    self.ba_costs[s].extend(fetched[0][s, :, 12].tolist())
+                if self.stages[s] is not None:
+                    kf_idx = [i for i in range(T) if packed[s, i, 0] > 0.5]
+                    self.stages[s].ingest(imgs0[s], imgs1[s], kf_idx, packed[s, kf_idx, 5:9],
+                                          packed[s, kf_idx, 9:12], [first + i for i in kf_idx])
         return packed
 
     def flush(self):

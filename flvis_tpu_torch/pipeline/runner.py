@@ -85,7 +85,7 @@ from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..loop.loop_closing import LoopCloser
 from ..ops.kernels import schur
-from ..utils import control
+from ..utils import control, profiling
 from ..utils.tree import tree_leaves, tree_map
 from ..vio import vimotion
 from ..viz.cloud import SparseMapRecorder
@@ -120,11 +120,14 @@ def _unpack_outputs(packed) -> tracker.FrameOutput:
 
 def fetch(*tensors):
     """One device → host copy for each device the tensors live on (None
-    passes through): returns float32 numpy arrays of the same shapes."""
+    passes through), each a counted host read: returns float32 numpy arrays
+    of the same shapes."""
     out = [None] * len(tensors)
     for dev in dict.fromkeys(t.device for t in tensors if t is not None):
         idx = [i for i, t in enumerate(tensors) if t is not None and t.device == dev]
-        flat = torch.cat([tensors[i].reshape(-1).to(torch.float32) for i in idx]).cpu().numpy()
+        flat = profiling.host_read(
+            torch.cat([tensors[i].reshape(-1).to(torch.float32) for i in idx]),
+            site="runner.fetch")
         off = 0
         for i in idx:
             n = tensors[i].numel()
@@ -139,10 +142,13 @@ class LoopStage:
     ingested and gated at its end, the gate is decided and verified at the
     next chunk's end, and the verification is accepted (→ PGO) at the end
     of the chunk after that.  The caller fetches `pending()` with its chunk
-    outputs in one host copy and hands the result to `resolve`."""
+    outputs in one host copy and hands the result to `resolve`.  Its spans
+    (loop.resolve, loop.ingest, loop.gate, loop.flush) carry `seq`, the
+    sequence of a MultiSeqSlam (None for a SlamSystem)."""
 
-    def __init__(self, lc: LoopCloser):
+    def __init__(self, lc: LoopCloser, seq: Optional[int] = None):
         self.lc = lc
+        self.seq = seq
         self.gate = None        # gate handle of the last chunk, decided at the next
         self.verify = None      # verification handle, accepted a chunk after that
 
@@ -156,42 +162,47 @@ class LoopStage:
         that the previous gate passes; rows/stats: `pending()` fetched."""
         gate, self.gate = self.gate, None
         verify, self.verify = self.verify, None
-        if verify is not None and self.lc.resolve_verify(verify, stats):
-            self.lc.optimize_graph()
-        if gate is not None:
-            handle = self.lc.dispatch_verify(gate, rows)
-            if handle is not None and handle[0] == "done":
-                # A sharded database resolved its gate and verification now.
-                if handle[1]:
-                    self.lc.optimize_graph()
-            else:
-                self.verify = handle
+        with profiling.span("loop.resolve", seq=self.seq):
+            if verify is not None and self.lc.resolve_verify(verify, stats):
+                self.lc.optimize_graph()
+            if gate is not None:
+                handle = self.lc.dispatch_verify(gate, rows)
+                if handle is not None and handle[0] == "done":
+                    # A sharded database resolved its gate and verification now.
+                    if handle[1]:
+                        self.lc.optimize_graph()
+                else:
+                    self.verify = handle
 
     def ingest(self, imgs_l, imgs_r, kf_idx, q, t, frame_ids):
         """The chunk's keyframes into the loop node, and their gate.  On
         another device than the images' (loop_device), only the keyframes'
         images move there."""
         if kf_idx:
-            sel = kf_idx
-            src = imgs_l.device if torch.is_tensor(imgs_l) else torch.device("cpu")
-            if src != self.lc.device:
-                def keyframes(imgs):
-                    imgs = imgs if torch.is_tensor(imgs) else torch.as_tensor(np.asarray(imgs))
-                    return imgs[kf_idx].to(self.lc.device)
+            with profiling.span("loop.ingest", seq=self.seq, keyframes=len(kf_idx)):
+                sel = kf_idx
+                src = imgs_l.device if torch.is_tensor(imgs_l) else torch.device("cpu")
+                if src != self.lc.device:
+                    def keyframes(imgs):
+                        imgs = (imgs if torch.is_tensor(imgs)
+                                else torch.as_tensor(np.asarray(imgs)))
+                        return imgs[kf_idx].to(self.lc.device)
 
-                imgs_l, imgs_r = keyframes(imgs_l), keyframes(imgs_r)
-                sel = list(range(len(kf_idx)))
-            ks = self.lc.add_keyframes_batch(imgs_l, imgs_r, sel, q, t, frame_ids)
-            self.gate = self.lc.gate_candidates(ks)
+                    imgs_l, imgs_r = keyframes(imgs_l), keyframes(imgs_r)
+                    sel = list(range(len(kf_idx)))
+                ks = self.lc.add_keyframes_batch(imgs_l, imgs_r, sel, q, t, frame_ids)
+            with profiling.span("loop.gate", seq=self.seq, queries=len(ks)):
+                self.gate = self.lc.gate_candidates(ks)
 
     def flush(self):
         """Resolve the deferred verification and gate of the last chunks."""
         verify, self.verify = self.verify, None
-        if verify is not None and self.lc.resolve_verify(verify):
-            self.lc.optimize_graph()
         gate, self.gate = self.gate, None
-        if gate is not None and self.lc.decide_loops(gate):
-            self.lc.optimize_graph()
+        with profiling.span("loop.flush", seq=self.seq):
+            if verify is not None and self.lc.resolve_verify(verify):
+                self.lc.optimize_graph()
+            if gate is not None and self.lc.decide_loops(gate):
+                self.lc.optimize_graph()
 
 
 def _ba_tail(bcfg, cam: StereoCamera, null, ba, fe, out):
@@ -285,12 +296,15 @@ def run_chunk_eager(step, carry, xs, draws, sparse_map: bool = False):
     (T, 14) outputs, KeyframePacket stacked over T — with sparse_map, with
     the corrections' landmarks as _frame_row gives them)."""
     rows, pkts = [], []
-    for i in range(xs[0].shape[0]):
-        carry, ys = step(carry, tuple(x[i] for x in xs), draws(i))
-        row, pkt = _frame_row(ys, sparse_map)
-        rows.append(row)
-        pkts.append(pkt)
-    return carry, torch.stack(rows), tree_map(lambda *a: torch.stack(a), *pkts)
+    T = xs[0].shape[0]
+    with profiling.span("step.run", replays=T):
+        for i in range(T):
+            with profiling.span("step.eager"):
+                carry, ys = step(carry, tuple(x[i] for x in xs), draws(i))
+            row, pkt = _frame_row(ys, sparse_map)
+            rows.append(row)
+            pkts.append(pkt)
+        return carry, torch.stack(rows), tree_map(lambda *a: torch.stack(a), *pkts)
 
 
 def _upload(a, device):
@@ -310,12 +324,33 @@ class _Captured:
     SlamSystem's (stereo or VIO), or MultiSeqSlam's over S sequences as S
     branches (`branches`).  The capture happens here, at the first chunk;
     a failure raises.  fn brings the schur kernel's last-block ticket(s)
-    (schur.use_ticket), one a branch."""
+    (schur.use_ticket), one a branch.
+
+    Each replay is a step.replay span (the host's enqueue, or its wait
+    where the launch queue is full).  The chunk's stream time: CUDA events
+    (timing on) recorded on the current stream before the first replay and
+    after each replay, from two reused sets (a pipelined chunk's events are
+    read after the next chunk's replays were enqueued); `settle_stream`,
+    called once a host read has waited for the chunk, adds their elapsed
+    time to the chunk's step.run span as `stream_ns`."""
 
     def __init__(self, fn, carry, xs, u, name, branches: int = 0):
         self.xs, self.u = tuple(x.clone() for x in xs), u
         self.step = control.CapturedStep(fn, tree_map(torch.clone, carry), self.xs + (self.u,),
                                          name=name, branches=branches)
+        self._events = ([], [])         # two sets of timing events, used in turns
+        self._turn = 0
+        self._unread = []               # (events, replays, step.run span) not yet read
+
+    def _event_set(self, n: int) -> list:
+        """The next set of at least n timing events; its unread chunk (if
+        any) is dropped."""
+        k, self._turn = self._turn, 1 - self._turn
+        evs = self._events[k]
+        self._unread = [u for u in self._unread if u[0] is not evs]
+        while len(evs) < n:
+            evs.append(torch.cuda.Event(enable_timing=True))
+        return evs
 
     def run(self, carry, xs, draw):
         """The chunk: carry (a state tree, copied in), xs (T, ...) tensors,
@@ -325,20 +360,39 @@ class _Captured:
             if x.dtype != dst.dtype:
                 raise TypeError(f"{self.step.name} was captured for {dst.dtype} inputs, not "
                                 f"{x.dtype}")
-        for dst, src in zip(tree_leaves(self.step.carry), tree_leaves(carry)):
-            dst.copy_(src)
         T = xs[0].shape[0]
-        outs = tree_map(lambda a: torch.empty((T,) + tuple(a.shape), dtype=a.dtype,
-                                              device=a.device), self.step.ys)
-        out_leaves, ys = tree_leaves(outs), tree_leaves(self.step.ys)
-        for i in range(T):
-            for dst, x in zip(self.xs, xs):
-                dst.copy_(x[i])
-            draw(self.u)
-            self.step.replay()
-            for dst, src in zip(out_leaves, ys):
-                dst[i].copy_(src)
-        return tree_map(torch.clone, self.step.carry), outs
+        timed = profiling.enabled()
+        evs = self._event_set(T + 1) if timed else None
+        with profiling.span("step.run", replays=T) as sp:
+            for dst, src in zip(tree_leaves(self.step.carry), tree_leaves(carry)):
+                dst.copy_(src)
+            outs = tree_map(lambda a: torch.empty((T,) + tuple(a.shape), dtype=a.dtype,
+                                                  device=a.device), self.step.ys)
+            out_leaves, ys = tree_leaves(outs), tree_leaves(self.step.ys)
+            for i in range(T):
+                for dst, x in zip(self.xs, xs):
+                    dst.copy_(x[i])
+                draw(self.u)
+                if timed and i == 0:
+                    evs[0].record()
+                with profiling.span("step.replay"):
+                    self.step.replay()
+                if timed:
+                    evs[i + 1].record()
+                for dst, src in zip(out_leaves, ys):
+                    dst[i].copy_(src)
+            if timed:
+                self._unread.append((evs, T, sp))
+            return tree_map(torch.clone, self.step.carry), outs
+
+    def settle_stream(self) -> None:
+        """The oldest unread chunk's stream time (the sum of its replays'
+        event intervals) into its step.run span; call after a host read that
+        waited for that chunk's replays."""
+        if self._unread:
+            evs, T, sp = self._unread.pop(0)
+            ms = sum(evs[i].elapsed_time(evs[i + 1]) for i in range(T))
+            sp.set(stream_ns=int(ms * 1e6))
 
 
 def pack_imu_frames(imu_accs, imu_gyros, imu_ts, pad: int = 16):
@@ -558,33 +612,40 @@ class SlamSystem:
         chunk's (None on the first call; flush() returns the last).  On a
         CUDA device each frame is one replay of the captured step (a capture
         failure raises), with no host read before the chunk's end."""
-        imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
-        T = imgs0.shape[0]
-        packed, pkts, cap = self._run_chunk("stereo", (imgs0, imgs1))
-        return self._after_dispatch(packed, pkts, cap, imgs0, imgs1, ts, T)
+        cid = profiling.new_chunk()
+        with profiling.span("chunk", chunk=cid, frames=len(imgs0), seqs=1):
+            with profiling.span("chunk.upload"):
+                imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
+            T = imgs0.shape[0]
+            packed, pkts, cap = self._run_chunk("stereo", (imgs0, imgs1))
+            return self._after_dispatch(packed, pkts, cap, imgs0, imgs1, ts, T, cid)
 
     def process_frames_vio(self, imgs0, imgs1, ts, imu_acc, imu_gyro, imu_t,
                            imu_pad: int = 16):
         """Replay T stacked stereo frames with their IMU: imu_acc/imu_gyro/
         imu_t are length-T lists of the samples since the previous frame.
         Returns as process_frames does."""
-        imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
-        T = imgs0.shape[0]
-        # The first frame may carry the whole pre-camera IMU history: feed
-        # all but its newest imu_pad samples through the stepwise path first.
-        n0 = len(imu_t[0])
-        if n0 > imu_pad:
-            k = n0 - imu_pad
-            self.feed_imu(np.asarray(imu_acc[0])[:k], np.asarray(imu_gyro[0])[:k],
-                          np.asarray(imu_t[0])[:k])
-            imu_acc = [np.asarray(imu_acc[0])[k:]] + list(imu_acc[1:])
-            imu_gyro = [np.asarray(imu_gyro[0])[k:]] + list(imu_gyro[1:])
-            imu_t = [np.asarray(imu_t[0])[k:]] + list(imu_t[1:])
-        acc, gyro, it, iv = (_upload(a, self.device)
-                             for a in pack_imu_frames(imu_acc, imu_gyro, imu_t, imu_pad))
-        ts32 = _upload(np.asarray(ts, np.float32), self.device)
-        packed, pkts, cap = self._run_chunk("vio", (imgs0, imgs1, ts32, acc, gyro, it, iv))
-        return self._after_dispatch(packed, pkts, cap, imgs0, imgs1, ts, T)
+        cid = profiling.new_chunk()
+        with profiling.span("chunk", chunk=cid, frames=len(imgs0), seqs=1):
+            with profiling.span("chunk.upload"):
+                imgs0, imgs1 = self._to_device(imgs0), self._to_device(imgs1)
+                # The first frame may carry the whole pre-camera IMU history:
+                # feed all but its newest imu_pad samples through the stepwise
+                # path first.
+                n0 = len(imu_t[0])
+                if n0 > imu_pad:
+                    k = n0 - imu_pad
+                    self.feed_imu(np.asarray(imu_acc[0])[:k], np.asarray(imu_gyro[0])[:k],
+                                  np.asarray(imu_t[0])[:k])
+                    imu_acc = [np.asarray(imu_acc[0])[k:]] + list(imu_acc[1:])
+                    imu_gyro = [np.asarray(imu_gyro[0])[k:]] + list(imu_gyro[1:])
+                    imu_t = [np.asarray(imu_t[0])[k:]] + list(imu_t[1:])
+                acc, gyro, it, iv = (_upload(a, self.device)
+                                     for a in pack_imu_frames(imu_acc, imu_gyro, imu_t, imu_pad))
+                ts32 = _upload(np.asarray(ts, np.float32), self.device)
+            T = imgs0.shape[0]
+            packed, pkts, cap = self._run_chunk("vio", (imgs0, imgs1, ts32, acc, gyro, it, iv))
+            return self._after_dispatch(packed, pkts, cap, imgs0, imgs1, ts, T, cid)
 
     def _after_dispatch(self, *chunk):
         """Synchronous mode finishes the chunk now; pipelined mode keeps it
@@ -594,38 +655,48 @@ class SlamSystem:
         prev, self._inflight = self._inflight, chunk
         return self._finish_chunk(*prev) if prev is not None else None
 
-    def _finish_chunk(self, packed_dev, pkts, cap, imgs0, imgs1, ts, T):
+    def _finish_chunk(self, packed_dev, pkts, cap, imgs0, imgs1, ts, T, cid=None):
         """A chunk's end (the reference's _finish_chunk): ONE host fetch of
         the packed outputs with the captured step's taken counts and the
         loop stage's pending gate rows and verification statistics; resolve
         the loop stage; log the chunk; ingest its keyframes into the loop
         node and gate them; with the sparse map, the chunk's correction
-        landmarks come in the same fetch (the ids' int32 bits as float32)."""
+        landmarks come in the same fetch (the ids' int32 bits as float32).
+        Its spans carry the chunk's own id `cid`, also where a pipelined
+        chunk's end runs inside the next chunk's call."""
+        with profiling.span("chunk.end", chunk=cid, frames=T):
+            return self._end_chunk(packed_dev, pkts, cap, imgs0, imgs1, ts, T)
+
+    def _end_chunk(self, packed_dev, pkts, cap, imgs0, imgs1, ts, T):
         stage = self.loop_stage
         lm_dev = ()
         if self.sparse_map is not None:
             pkts, (lm_id, lm_pw, lm_mask) = pkts
             lm_dev = (lm_id.view(torch.float32), lm_pw, lm_mask)
-        packed, taken, rows, stats, *lm = fetch(
-            packed_dev, cap.step.taken if cap is not None else None,
-            *(stage.pending() if stage is not None else (None, None)), *lm_dev)
-        if cap is not None:
-            cap.step.settle(taken)
+        with profiling.span("chunk.fetch") as sp:
+            packed, taken, rows, stats, *lm = fetch(
+                packed_dev, cap.step.taken if cap is not None else None,
+                *(stage.pending() if stage is not None else (None, None)), *lm_dev)
+            if cap is not None:
+                sp.set(**cap.step.settle(taken))
+                cap.settle_stream()
         if stage is not None:
             stage.resolve(rows, stats)
-        outs = _unpack_outputs(packed)
-        first = self._frames_processed
-        self._frames_processed += T
-        kf_idx = [i for i in range(T) if outs.is_keyframe[i]]
-        for i in kf_idx:
-            self.keyframes.append(tree_map(lambda a: a[i], pkts))
-            self.ba_costs.append(float(packed[i, 12]))
-            self.n_valid_corrections += int(packed[i, 13] > 0.5)
-            if lm and packed[i, 13] > 0.5:
-                self.sparse_map.add_correction(lm[0][i].view(np.int32), lm[1][i], lm[2][i] > 0.5)
-        for i in range(T):
-            self.trajectory.append((first + i, float(ts[i]) if ts is not None else 0.0,
-                                    outs.T_c_w.q[i], outs.T_c_w.t[i]))
+        with profiling.span("chunk.log"):
+            outs = _unpack_outputs(packed)
+            first = self._frames_processed
+            self._frames_processed += T
+            kf_idx = [i for i in range(T) if outs.is_keyframe[i]]
+            for i in kf_idx:
+                self.keyframes.append(tree_map(lambda a: a[i], pkts))
+                self.ba_costs.append(float(packed[i, 12]))
+                self.n_valid_corrections += int(packed[i, 13] > 0.5)
+                if lm and packed[i, 13] > 0.5:
+                    self.sparse_map.add_correction(lm[0][i].view(np.int32), lm[1][i],
+                                                   lm[2][i] > 0.5)
+            for i in range(T):
+                self.trajectory.append((first + i, float(ts[i]) if ts is not None else 0.0,
+                                        outs.T_c_w.q[i], outs.T_c_w.t[i]))
         if stage is not None:
             stage.ingest(imgs0, imgs1, kf_idx, outs.T_c_w.q[kf_idx], outs.T_c_w.t[kf_idx],
                          [first + i for i in kf_idx])

@@ -81,6 +81,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from . import profiling
 from .tree import tree_leaves, tree_map, tree_spec
 
 MAX_SITES = 128         # conds and loops of a captured step, and of each branch (taken rows)
@@ -416,6 +417,15 @@ class CapturedStep:
         self.taken = torch.zeros((MAX_SITES * (1 + branches), 2), dtype=torch.int32,
                                  device=self.device)
         lib, _ = _build.load_library()
+        with profiling.span("capture", step=name) as sp:
+            self._capture(lib, fn, carry, xs, name, branches)
+            sp.set(warmup_s=self.seconds["warmup"], capture_s=self.seconds["capture"])
+        self.replays = self.settled = 0
+        self.body_kernels = self.bodies_run = self.iterations_run = 0
+        self.taken_total = np.zeros((len(self.sites), 2), np.int64)     # settled
+
+    def _capture(self, lib, fn, carry, xs, name, branches):
+        """The two eager warm-up steps, then the capture (class note)."""
         t0 = time.perf_counter()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -462,20 +472,19 @@ class CapturedStep:
         self.seconds = {"warmup": t1 - t0, "capture": time.perf_counter() - t1}
         self.sites = cap.sites
         self.top_nodes = dict(zip(NODE_KINDS, census))
-        self.replays = self.settled = 0
-        self.body_kernels = self.bodies_run = self.iterations_run = 0
-        self.taken_total = np.zeros((len(self.sites), 2), np.int64)     # settled
 
     def replay(self):
         self.graph.replay()
         self.replays += 1
 
-    def settle(self, taken):
+    def settle(self, taken) -> dict:
         """Add `taken` (a host copy of the taken counts since the last
         settle, of `self.taken`'s shape) to the node statistics, and zero
         the counts on the card.  An IF site's sides count bodies run; a
         WHILE site's first column its iterations (each one run of its body),
-        its second the loop's entries (no body)."""
+        its second the loop's entries (no body).  Returns what this settle
+        added: {bodies_run, iterations_run, body_kernels}."""
+        before = (self.bodies_run, self.iterations_run, self.body_kernels)
         for k, site in enumerate(self.sites):
             for side, n in enumerate(taken[site["row"]]):
                 n = int(n)
@@ -487,6 +496,9 @@ class CapturedStep:
                     self.iterations_run += n
         self.settled = self.replays
         self.taken.zero_()
+        return {"bodies_run": self.bodies_run - before[0],
+                "iterations_run": self.iterations_run - before[1],
+                "body_kernels": self.body_kernels - before[2]}
 
     def taken_by_name(self) -> dict:
         """{site name: settled taken counts, summed over the sites of that

@@ -258,15 +258,14 @@ def euroc_runs(tmp_path_factory):
             sys_a.feed_imu(fr.imu_acc, fr.imu_gyro, fr.imu_t)
         sys_a.process_frame(fr.img0, fr.img1, t_img=fr.t)
     sys_b = SlamSystem(cfg, cam, device="cpu", T_i_c=ds.T_i_c, use_imu=True)
-    timer = profiling.StageTimer()
+    calls = profiling.totals().get("chunk", {}).get("calls", 0)
     for c0 in range(0, len(frames), 8):
         b = frames[c0:c0 + 8]
-        with timer.stage("chunk") as box:
-            box["out"] = sys_b.process_frames_vio(
-                np.stack([f.img0 for f in b]), np.stack([f.img1 for f in b]),
-                ts=np.asarray([f.t for f in b]), imu_acc=[f.imu_acc for f in b],
-                imu_gyro=[f.imu_gyro for f in b], imu_t=[f.imu_t for f in b])
-    return ds, sys_a, sys_b, timer
+        sys_b.process_frames_vio(
+            np.stack([f.img0 for f in b]), np.stack([f.img1 for f in b]),
+            ts=np.asarray([f.t for f in b]), imu_acc=[f.imu_acc for f in b],
+            imu_gyro=[f.imu_gyro for f in b], imu_t=[f.imu_t for f in b])
+    return ds, sys_a, sys_b, profiling.totals()["chunk"]["calls"] - calls
 
 
 def _ate(ds, sys_):
@@ -284,12 +283,12 @@ def test_euroc_format_vio_ate(euroc_runs):
 
 
 def test_euroc_format_stepwise_and_chunked_agree(euroc_runs):
-    _, sys_a, sys_b, timer = euroc_runs
+    _, sys_a, sys_b, chunks = euroc_runs
     ta = np.asarray([t for (_, _, _, t) in sys_a.trajectory])
     tb = np.asarray([t for (_, _, _, t) in sys_b.trajectory])
     assert ta.shape == tb.shape == (16, 3)
     np.testing.assert_allclose(ta, tb, atol=2e-3)
-    assert timer.counts["chunk"] == 2 and "chunk" in timer.report()
+    assert chunks == 2 and "chunk" in profiling.report()
 
 
 def test_timing_sync_on_cpu_tensors():
@@ -298,6 +297,6 @@ def test_timing_sync_on_cpu_tensors():
     from flvis_tpu_torch.geometry import se3
 
     assert timing.sync({"a": torch.ones(3), "T": se3.identity(device="cpu")}) is None
-    t = profiling.StageTimer()
-    assert t.record("x", torch.zeros(2)).shape == (2,)
-    assert t.counts["x"] == 1
+    n = profiling.sites().get("test.x", (0, 0))[0]
+    assert profiling.host_read(torch.zeros(2), site="test.x").shape == (2,)
+    assert profiling.sites()["test.x"][0] == n + 1
