@@ -135,6 +135,15 @@ SCHUR_TOL = {"t": 2e-4, "q": 2e-5, "lm": 2e-3}   # tests/test_window_ba.py:201-2
 IMU_TOL = 1e-6                        # small-angle series vs exact exp, imu_chain.py:17-21
 IMU_SUM_TOL = 1e-5                    # the fused feed's pos, vel: FMA vs cumsum, float32
 FAST_TOL = 1e-3                       # sum-order rounding of FAST scores and the blur
+PGO_EDGE_TOL = 5e-5                   # pgo_edges vs its twin, / (1 + |x|): tests/test_torch_cuda.py
+# csrc/pgo_edges.cu's arithmetic, counted from its source with a counting
+# scalar type: one residual in plain float32 is 202 adds, 272 multiplies,
+# 27 divides and 11 sqrt/sin/cos/atan2 (512 operations, the general
+# branches); a forward-mode pass carries a derivative beside each value
+# (an add 2, a multiply 4, a divide 5, a function 3): 1,660 a tangent
+# direction, 12 directions an edge in linearize mode.
+PGO_RESIDUAL_OPS = 512
+PGO_DUAL_OPS = 1660
 N_FRAMES = 64
 WARM_FRAMES = 16
 SYNC_FRAMES = 8                       # the chunk whose step's host syncs are counted
@@ -149,7 +158,8 @@ KERNEL_FNS = {"grad_blur": ("grad_blur_kernel",),
               "fastblur": ("fastblur_kernel",),
               "sweep": ("sweep_kernel",),
               "hamming": ("hamming_kernel", "hamming_match_kernel"),
-              "bowassign": ("bowassign_kernel",), "gather": ("gather_kernel",)}
+              "bowassign": ("bowassign_kernel",), "gather": ("gather_kernel",),
+              "pgo_edges": ("pgo_linearize_kernel", "pgo_cost_kernel")}
 # Card peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W): HBM bytes/s,
 # float32 operations/s outside the tensor cores, and dense int8 tensor-core
 # operations/s.  Integer XOR/popcount work would not run at the float32 rate:
@@ -1075,20 +1085,96 @@ def check_gather(img, cfg, device):
     return row
 
 
+def pgo_edge_graph(device, K: int, loops: int, seed: int = 3):
+    """A pose graph at a PGO solve's shape: a 3 m ring of K − 16 of K
+    nodes turning about z, positions 8 cm off, 5 successors a node and
+    `loops` valid loop edges in a bucket of 64 (band_graph's layout)."""
+    rng = np.random.default_rng(seed)
+    n = K - 16
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    q = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (K, 1))
+    t = np.zeros((K, 3), np.float32)
+    q[:n] = np.stack([np.cos(th / 2), 0 * th, 0 * th, np.sin(th / 2)], -1)
+    t[:n] = 3.0 * np.stack([np.cos(th), np.sin(th), 0 * th], -1)
+    noisy = t + rng.normal(0, 0.08, t.shape).astype(np.float32) * (np.arange(K) < n)[:, None]
+    pairs = [(int(i), int(i) + int(g)) for i, g in
+             zip(rng.integers(0, n // 2, loops), rng.integers(n // 3, n // 2, loops))]
+    return band_graph(q, noisy, (q, t), (q, t), n, pairs, device, loop_pad=64)[0]
+
+
+def check_pgo_edges(device):
+    """pgo_edges (csrc/pgo_edges.cu) in both modes against its plain twin
+    on the card (pose_graph.edge_terms_plain: vmap(jacfwd) and the cost,
+    eagerly), at euroc.fleet8's dense shape (256 nodes, 1,344 edges: the
+    table's row) and euroc.replay's banded one (1,024 nodes, 5,184 edges).
+    The bound: each input byte once (the nodes once, not per edge) and the
+    outputs; operations as PGO_DUAL_OPS and PGO_RESIDUAL_OPS count them."""
+    from flvis_tpu_torch.loop import pose_graph
+    from flvis_tpu_torch.ops.kernels import pgo_edges
+
+    row = None
+    for K in (256, 1024):
+        g = pgo_edge_graph(device, K, 56)
+        args = (g.node_q, g.node_t, g.edge_i, g.edge_j, g.edge_q, g.edge_t, g.edge_valid,
+                g.edge_weight, 1.0)
+        E = g.edge_i.shape[0]
+        read = 28.0 * K + (16 + 28 + 1 + 4) * E
+        out = {}
+        for mode, fn, writes, ops in (
+                ("linearize", "pgo_linearize_kernel", (6 + 4 * 36 + 1) * 4.0,
+                 12 * PGO_DUAL_OPS + 4 * 36 + 8),
+                ("cost", "pgo_cost_kernel", 4.0, PGO_RESIDUAL_OPS + 16)):
+            got = pgo_edges.pgo_edges_kernel(*args, mode=mode)
+            again = pgo_edges.pgo_edges_kernel(*args, mode=mode)
+            ref = pose_graph.edge_terms_plain(*args, mode=mode)
+            torch.cuda.synchronize()
+            got, again, ref = (x if isinstance(x, tuple) else (x,) for x in (got, again, ref))
+            err = max(float(((a - b).abs() / (1.0 + b.abs())).max()) for a, b in zip(got, ref))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            if err > PGO_EDGE_TOL or not same:
+                fail(f"pgo_edges {mode} at K={K}: error {err:.3e} (tolerance {PGO_EDGE_TOL}), "
+                     f"repeat {'bit-equal' if same else 'DIFFERENT'}")
+            k_ms, p_ms = cuda_ms(lambda: pgo_edges.pgo_edges_kernel(*args, mode=mode),
+                                 lambda: pose_graph.edge_terms_plain(*args, mode=mode),
+                                 reps=20, warmup=3)
+            dev = device_ms(lambda: pgo_edges.pgo_edges_kernel(*args, mode=mode), "pgo_edges",
+                            fns=(fn,))
+            b_ms, b_by = bound(read + writes * E, ops * E)
+            print(f"pgo_edges {mode} K={K} E={E}: error {err:.3e} (/(1+|x|)), repeat bit-equal, "
+                  f"device {dev:.4f} ms, CUDA events {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.6f} ms ({b_by})")
+            out[mode] = (err, dev, k_ms, p_ms, read + writes * E, ops * E)
+        if K == 256:
+            err, dev, k_ms, p_ms, nbytes, ops = out["linearize"]
+            row = entry("pgo_edges", "flvis_tpu_torch/csrc/pgo_edges.cu",
+                        "none (XLA's fused jax.jacfwd, flvis_tpu/loop/pose_graph.py:71-75)",
+                        max(err, out["cost"][0]), dev, k_ms, p_ms, None, nbytes, ops)
+            row.update(cost_ms=out["cost"][1], cost_event_ms=out["cost"][2],
+                       cost_plain_ms=out["cost"][3])
+    return row
+
+
 def kernels():
     """{kernel: its wrappers' launch counters}: hamming counts both modes.
-    A tree without the match mode (the parent, read with --parent) counts
-    what it has."""
+    A tree without the match mode or pgo_edges (a parent, read with
+    --parent) counts what it has."""
+    import importlib.util
+
     from flvis_tpu_torch.ops.kernels import (bowassign, fastblur, gather, gradpyr, hamming,
                                              imu_chain, schur, sweep)
 
     ham = (hamming.hamming_matrix_kernel,) + tuple(
         f for f in (getattr(hamming, "mutual_ratio_match_kernel", None),) if f is not None)
-    return {"grad_blur": (gradpyr.grad_blur_kernel,), "schur_step": (schur.schur_step_kernel,),
-            "imu_chain": (imu_chain.attitude_chain_kernel,),
-            "fastblur": (fastblur.fast_score_nms_blur_kernel,),
-            "sweep": (sweep.sweep_maps_kernel,), "hamming": ham,
-            "bowassign": (bowassign.bow_tf_kernel,), "gather": (gather.gather_windows_kernel,)}
+    out = {"grad_blur": (gradpyr.grad_blur_kernel,), "schur_step": (schur.schur_step_kernel,),
+           "imu_chain": (imu_chain.attitude_chain_kernel,),
+           "fastblur": (fastblur.fast_score_nms_blur_kernel,),
+           "sweep": (sweep.sweep_maps_kernel,), "hamming": ham,
+           "bowassign": (bowassign.bow_tf_kernel,), "gather": (gather.gather_windows_kernel,)}
+    if importlib.util.find_spec("flvis_tpu_torch.ops.kernels.pgo_edges") is not None:
+        from flvis_tpu_torch.ops.kernels import pgo_edges
+
+        out["pgo_edges"] = (pgo_edges.pgo_edges_kernel,)
+    return out
 
 
 def reset_counts():
@@ -1115,7 +1201,7 @@ def replay_launches(names, before) -> dict:
     no wrapper, so this is the only count of a replay's launches."""
     after = read_counts()
     events = {k: sum(n for key, n in names.items() if any(f in key for f in fns))
-              for k, fns in LAUNCH_GLOBALS.items()}
+              for k, fns in LAUNCH_GLOBALS.items() if k in after}
     return {k: events[k] - (after[k] - before[k]) for k in events}
 
 
@@ -4115,7 +4201,8 @@ def main() -> int:
     table = [check_grad_blur(device), check_schur(cfg, cam, device), check_imu_chain(device),
              check_fastblur(img_l), check_sweep(img_l, img_r),
              check_hamming(desc_l.contiguous(), desc_r.contiguous(), kf_desc, kf_valid),
-             check_bowassign(kf_desc, kf_valid, cfg), check_gather(img_l, cfg, device)]
+             check_bowassign(kf_desc, kf_valid, cfg), check_gather(img_l, cfg, device),
+             check_pgo_edges(device)]
     feed_readings(device)
     print(f"phase kernel checks: {time.perf_counter() - t0:.1f} s")
 
@@ -4168,7 +4255,7 @@ def main() -> int:
     slice_launches, head_launches = slice_r["launches"], head_r["launches"]
 
     # Launches on the path each kernel belongs to: the slice for rows 1-2,
-    # the headline for 3-6, the multi-sequence composition for 7-8.
+    # the headline for 3-6 and pgo_edges, the multi-sequence composition for 7-8.
     for e in table:
         path_counts = {"grad_blur": slice_launches, "schur_step": slice_launches,
                        "bowassign": ms_launches, "gather": ms_launches}.get(e["name"],

@@ -75,7 +75,7 @@ from ..geometry import camera as cam_m, se3 as se3m, so3
 from ..geometry.camera import StereoCamera
 from ..geometry.se3 import SE3
 from ..ops import image as imops, orb, pnp, stereo
-from ..ops.kernels import hamming
+from ..ops.kernels import hamming, pgo_edges
 from ..parallel import dist_loop, mesh as mesh_m
 from ..utils import profiling
 from ..utils.tree import tree_map
@@ -726,8 +726,10 @@ class LoopCloser:
         cfg.pgo_max_loop_edges), throttled as the reference throttles it.
         Each call is a `pgo` span: route (dense, banded, or throttled when
         it returns without a solve), nodes (the padded window), window,
-        loop_edges, and the LM's lm_iters and lm_rejects."""
-        with profiling.span("pgo", route="throttled") as sp:
+        loop_edges, the LM's lm_iters and lm_rejects, and edge_launches,
+        the pgo_edges kernel's launches in the solve (its linearisations
+        and cost evaluations on the card; 0 on the CPU)."""
+        with profiling.span("pgo", route="throttled", edge_launches=0) as sp:
             self._optimize_graph(sp)
 
     def _optimize_graph(self, sp):
@@ -773,6 +775,7 @@ class LoopCloser:
             fixed = fixed.to(self.pgo_device)
         sp.set(route="banded" if n_pad > _BANDED_THRESHOLD else "dense", nodes=n_pad,
                window=wn, loop_edges=L)
+        launches = pgo_edges.pgo_edges_kernel.launches
         if n_pad > _BANDED_THRESHOLD:
             # _build_graph puts the n_succ·n_pad sequential edges first: the band.
             solved = pose_graph.optimize_banded(
@@ -781,7 +784,8 @@ class LoopCloser:
         else:
             solved = pose_graph.optimize(g, fixed, iters=min(cfg.pgo_iters, 30))
         g2 = solved[0]
-        sp.set(lm_iters=solved.lm_iters, lm_rejects=solved.lm_rejects)
+        sp.set(lm_iters=solved.lm_iters, lm_rejects=solved.lm_rejects,
+               edge_launches=pgo_edges.pgo_edges_kernel.launches - launches)
         # The solved poses back next to the pose tables.
         self._apply_pgo(g2.node_q.to(self.device), g2.node_t.to(self.device), i0, wn, n)
         self._last_pgo_id = j1

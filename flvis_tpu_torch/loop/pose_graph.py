@@ -3,8 +3,10 @@ flvis_tpu/loop/pose_graph.py).
 
 Nodes are world-from-camera poses T_w_c; edge residual
 r = log(T_ij⁻¹ · (T_i exp ξ_i)⁻¹ · (T_j exp ξ_j)) with exact Jacobians from
-forward-mode autodiff (torch.func.jacfwd, vmapped over the edges) and
-Cauchy weights.  Two solvers share one LM loop (`_lm_outer_loop`, the
+forward-mode autodiff and Cauchy weights: on the card one launch of
+ops/kernels/pgo_edges a linearisation or cost, on the CPU its plain twin
+here (torch.func.jacfwd, vmapped over the edges; `edge_terms_plain`).  Two
+solvers share one LM loop (`_lm_outer_loop`, the
 reference's `while_loop` with its accept/λ/exit semantics and a host read
 per iteration):
   - `optimize`: one dense solve of the (6K, 6K) normal system per LM step;
@@ -31,6 +33,7 @@ from torch.func import jacfwd, vmap
 
 from ..geometry import se3 as se3m, so3
 from ..geometry.se3 import SE3
+from ..ops.kernels import pgo_edges
 from ..utils import profiling
 
 
@@ -99,10 +102,6 @@ def _cauchy_weight(r2, c: float):
     return 1.0 / (1.0 + r2 / (c * c))
 
 
-def _index(T: SE3, idx) -> SE3:
-    return SE3(T.q[idx], T.t[idx])
-
-
 def _sum_plan(keys, width: int | None = None):
     """A fixed-order plan for summing rows that share a key: the rows'
     positions, grouped by key in a stable sort, padded to `width` (the
@@ -146,28 +145,42 @@ def _plan_sum(plan, rows, n_out: int):
     return out[:n_out]
 
 
-def _edge_terms(graph: PoseGraph, cauchy_c: float):
-    """The two functions of the nodes both solvers share: the robust total
-    cost, and the linearisation (r, J_i, J_j, J_i·w, J_j·w, w) with the
-    Cauchy weights (zero on invalid edges)."""
-    ii, jj = graph.edge_i.long(), graph.edge_j.long()
-    Tij = SE3(graph.edge_q, graph.edge_t)
-    dev, dt = graph.node_t.device, graph.node_t.dtype
-
-    def total_cost(nodes: SE3):
-        Ti, Tj = _index(nodes, ii), _index(nodes, jj)
-        z = torch.zeros((ii.shape[0], 6), dtype=dt, device=dev)
-        r = _edge_residual(z, z, Ti.q, Ti.t, Tj.q, Tj.t, Tij.q, Tij.t)
+def edge_terms_plain(node_q, node_t, edge_i, edge_j, edge_q, edge_t, edge_valid, edge_weight,
+                     cauchy_c: float, *, mode: str):
+    """ops/kernels/pgo_edges' plain twin, the CPU path: mode "linearize"
+    gives (r, J_i, J_j, J_i·w, J_j·w, w) with the Cauchy weights (zero on
+    invalid edges), mode "cost" each edge's robust cost ρ·edge_weight (zero
+    on invalid edges)."""
+    Ti, Tj = SE3(node_q[edge_i], node_t[edge_i]), SE3(node_q[edge_j], node_t[edge_j])
+    if mode == "cost":
+        z = torch.zeros((edge_i.shape[0], 6), dtype=node_t.dtype, device=node_t.device)
+        r = _edge_residual(z, z, Ti.q, Ti.t, Tj.q, Tj.t, edge_q, edge_t)
         r2 = torch.sum(r * r, dim=-1)
         rho = (cauchy_c ** 2) * torch.log1p(r2 / cauchy_c ** 2)
-        return torch.sum(torch.where(graph.edge_valid, rho * graph.edge_weight, 0.0))
+        return torch.where(edge_valid, rho * edge_weight, 0.0)
+    r, Ji, Jj = _edge_res_jac(Ti, Tj, SE3(edge_q, edge_t))
+    r2 = torch.sum(r * r, dim=-1)
+    w = _cauchy_weight(r2, cauchy_c) * edge_weight
+    w = torch.where(edge_valid, w, 0.0)
+    return r, Ji, Jj, Ji * w[:, None, None], Jj * w[:, None, None], w
+
+
+def _edge_terms(graph: PoseGraph, cauchy_c: float):
+    """The two functions of the nodes both solvers share: the robust total
+    cost (the edges' costs summed in a fixed order), and the linearisation
+    (r, J_i, J_j, J_i·w, J_j·w, w) with the Cauchy weights (zero on invalid
+    edges); each one pgo_edges call."""
+    edges = (graph.edge_i.long(), graph.edge_j.long(), graph.edge_q, graph.edge_t,
+             graph.edge_valid, graph.edge_weight)
+
+    def terms(nodes: SE3, mode: str):
+        return pgo_edges.pgo_edges(nodes.q, nodes.t, *edges, cauchy_c, mode=mode)
+
+    def total_cost(nodes: SE3):
+        return torch.sum(terms(nodes, "cost"))
 
     def weighted(nodes: SE3):
-        r, Ji, Jj = _edge_res_jac(_index(nodes, ii), _index(nodes, jj), Tij)
-        r2 = torch.sum(r * r, dim=-1)
-        w = _cauchy_weight(r2, cauchy_c) * graph.edge_weight
-        w = torch.where(graph.edge_valid, w, 0.0)
-        return r, Ji, Jj, Ji * w[:, None, None], Jj * w[:, None, None], w
+        return terms(nodes, "linearize")
 
     return total_cost, weighted
 

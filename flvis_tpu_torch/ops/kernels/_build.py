@@ -51,6 +51,8 @@ _SIGNATURES = {
     "flvis_bow_tf": [_P, _P, _P, _P, _I, _I, _I, _P],
     "flvis_gather_windows": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _P, _L, _P, _I, _I, _I, _P],
     "flvis_gather_patches": [_P, _P, _P, _P, _I, _I, _I, _P, _L, _L, _P, _I, _I, _P],
+    "flvis_pgo_edges": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P,
+                        _P, _P],
     "flvis_cond_open": [_P, _P, _P, _P],
     "flvis_cond_body_begin": [_P, ctypes.c_ulonglong, _I, _P],
     "flvis_while_open": [_P, _P, _P, _P],

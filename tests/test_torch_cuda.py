@@ -10,6 +10,7 @@ file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -27,6 +28,18 @@ IMU_TOL = 1e-6                                    # small-angle series vs exact 
 # few ulps (1.2e-7 relative) over up to 48 summed terms stay under 1e-5.
 IMU_SUM_TOL = 1e-5
 FAST_TOL = 1e-3                                   # sum-order rounding, [0, 255] inputs
+# pgo_edges against its plain twin, elementwise on |kernel - plain| / (1 + |plain|):
+# both run the same float32 formulas (~100 dependent operations from the
+# poses to a Jacobian entry), the card with nvcc's FMA contraction and its
+# own sinf, cosf, atan2f, log1pf (1-2 ulps), so each side is a few ulps of
+# the operands' scale off (a host build of the kernel's source read
+# ≤ 6e-6 against the twin at these shapes).
+PGO_EDGE_TOL = 5e-5
+# optimize / optimize_banded on the card against the CPU path: the bounds
+# held between the port's and the JAX package's solvers
+# (tests/test_torch_pose_graph_banded.py): the same algorithm in another
+# rounding — the kernel's, and the card's LU solves against the CPU's.
+PGO_SOLVE_TOL = {"t": 2e-4, "q": 2e-5}
 
 
 @pytest.fixture
@@ -1627,6 +1640,146 @@ def test_banded_pgo_repeats_bit_for_bit(dev):
     err0 = np.linalg.norm(g.node_t[:1000].cpu().numpy() - ts[:1000], axis=-1).max()
     err1 = np.linalg.norm(a.node_t[:1000].cpu().numpy() - ts[:1000] - gauge, axis=-1).max()
     assert err0 > 0.2 and err1 < 1e-3, (err1, err0)
+
+
+def _hard_edges(K, n_succ=5, L=64, seed=0):
+    """pgo_edges' inputs at a solver's shape (K nodes, n_succ successors an
+    node, L loop slots), CPU tensors: node rotations near the identity (a
+    quarter of them) and anywhere; measurements exact, noisy, near the
+    identity (10⁻⁹-10⁻⁴ rad off), and up to π - 10⁻³ rad off, so that
+    residual rotations come near 0 and near π; a tenth invalid, the last 8
+    loop slots padded (i = j = 0, invalid) as loop_closing pads them;
+    weights 0, 0.2, 1 and 5."""
+    from flvis_tpu_torch.geometry import se3, so3
+
+    rng = np.random.default_rng(seed)
+    f = dict(dtype=torch.float32)
+    ang = rng.uniform(-3.2, 3.2, (K, 3))
+    ang[:K // 4] *= 1e-9
+    q = so3.exp(torch.as_tensor(ang, **f))
+    t = torch.as_tensor(rng.normal(0, 2.0, (K, 3)), **f)
+    a = torch.arange(K)
+    li, lj = torch.as_tensor(rng.integers(0, K, L)), torch.as_tensor(rng.integers(0, K, L))
+    li[-8:] = 0
+    lj[-8:] = 0
+    ei = torch.cat([a] * n_succ + [li])
+    ej = torch.cat([torch.clamp(a + s, max=K - 1) for s in range(1, n_succ + 1)] + [lj])
+    E = ei.shape[0]
+    rel = se3.compose(se3.inverse(se3.SE3(q[ei], t[ei])), se3.SE3(q[ej], t[ej]))
+    kind = rng.integers(0, 4, E)
+    off = rng.normal(0, 0.01, (E, 3))
+    off[kind == 1] = 0.0
+    axis = rng.normal(size=(E, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    far = np.pi - 10.0 ** rng.uniform(-3, -1, E)
+    near = 10.0 ** rng.uniform(-9, -4, E)
+    off[kind == 2] = axis[kind == 2] * far[kind == 2, None]
+    off[kind == 3] = axis[kind == 3] * near[kind == 3, None]
+    eq = so3.mul(rel.q, so3.exp(torch.as_tensor(off, **f))).contiguous()
+    et = rel.t + torch.as_tensor(rng.normal(0, 0.01, (E, 3)) * (kind != 1)[:, None], **f)
+    valid = torch.as_tensor(rng.uniform(size=E) > 0.1)
+    valid[-8:] = False
+    w = torch.as_tensor(rng.choice([0.0, 0.2, 1.0, 5.0], E), **f)
+    return q, t, ei, ej, eq, et.contiguous(), valid, w
+
+
+@pytest.mark.parametrize("K", [256, 1024], ids=["fleet8_dense", "replay_banded"])
+def test_pgo_edges_kernel_matches_plain(dev, K):
+    """pgo_edges on the card against its plain twin on the CPU (the
+    vmap(jacfwd) linearisation and the cost), at euroc.fleet8's dense shape
+    (256 nodes, 5 successors, 64 loop slots) and euroc.replay's banded one
+    (1,024 nodes): r, J_i, J_j, J·w, w and each edge's cost within
+    PGO_EDGE_TOL, zero weights and costs exactly where the twin's are zero
+    (invalid and padded edges, zero edge weights); one launch a mode, and
+    two launches give the same bits."""
+    from flvis_tpu_torch.ops.kernels import pgo_edges
+
+    args = _hard_edges(K)
+    on_card = tuple(a.to(dev) for a in args)
+    for mode in pgo_edges.MODES:
+        want = pgo_edges.pgo_edges(*args, 1.0, mode=mode)
+        before = pgo_edges.pgo_edges_kernel.launches
+        got = pgo_edges.pgo_edges(*on_card, 1.0, mode=mode)
+        again = pgo_edges.pgo_edges_kernel(*on_card, 1.0, mode=mode)
+        torch.cuda.synchronize()
+        assert pgo_edges.pgo_edges_kernel.launches == before + 2
+        got, again, want = (x if isinstance(x, tuple) else (x,) for x in (got, again, want))
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a, b)
+            a = a.cpu()
+            assert a.shape == c.shape and bool(torch.isfinite(a).all())
+            err = float(((a - c).abs() / (1.0 + c.abs())).max())
+            assert err <= PGO_EDGE_TOL, (mode, err)
+        zero = ~args[6] | (args[7] == 0)   # invalid or padded, or weighted 0
+        assert bool((want[-1][zero] == 0).all()) and bool((got[-1].cpu()[zero] == 0).all())
+        assert bool((args[7][args[6]] == 0).any())
+
+
+def test_pgo_edges_kernel_refuses(dev):
+    """The wrapper raises on what the kernel cannot take."""
+    from flvis_tpu_torch.ops.kernels import pgo_edges
+
+    q, t, ei, ej, eq, et, ev, ew = (a.to(dev) for a in _hard_edges(32, L=8))
+    with pytest.raises(ValueError, match="int64"):
+        pgo_edges.pgo_edges_kernel(q, t, ei.int(), ej, eq, et, ev, ew, 1.0, mode="cost")
+    with pytest.raises(ValueError, match="mode"):
+        pgo_edges.pgo_edges_kernel(q, t, ei, ej, eq, et, ev, ew, 1.0, mode="hessian")
+    with pytest.raises(ValueError, match="expected"):
+        pgo_edges.pgo_edges_kernel(q, t, ei, ej, eq[:-1], et, ev, ew, 1.0, mode="linearize")
+
+
+@pytest.mark.parametrize("route", ["dense", "banded"])
+def test_pgo_on_card_matches_cpu(dev, route, monkeypatch):
+    """optimize (256 nodes, 64 loop edges) and optimize_banded (1,024) on
+    the card agree with the CPU path within PGO_SOLVE_TOL; on the card
+    every linearisation and cost evaluation is one pgo_edges launch and
+    nothing of the plain twin (torch.func's vmap(jacfwd)) runs."""
+    from flvis_tpu_torch.loop import pose_graph
+    from flvis_tpu_torch.ops.kernels import pgo_edges
+
+    K = 256 if route == "dense" else 1024
+    g, _, band_edges = _banded_graph("cpu", K=K, n=K - 24, loop_pad=64)
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+
+    def solve(graph, held):
+        if route == "dense":
+            return pose_graph.optimize(graph, held, iters=30)
+        return pose_graph.optimize_banded(graph, held, band_edges=band_edges, iters=20)
+
+    want = solve(g, fixed)
+    calls = []
+    real_terms = pose_graph._edge_terms
+
+    def counted_terms(graph, cauchy_c):
+        total_cost, weighted = real_terms(graph, cauchy_c)
+
+        def cost(nodes):
+            calls.append("cost")
+            return total_cost(nodes)
+
+        def lin(nodes):
+            calls.append("linearize")
+            return weighted(nodes)
+
+        return cost, lin
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain twin ran on the card")
+
+    monkeypatch.setattr(pose_graph, "_edge_terms", counted_terms)
+    monkeypatch.setattr(pose_graph, "_edge_res_jac", refuse)
+    monkeypatch.setattr(pose_graph, "_edge_residual", refuse)
+    before = pgo_edges.pgo_edges_kernel.launches
+    got = solve(dataclasses.replace(g, **{f.name: getattr(g, f.name).to(dev)
+                                          for f in dataclasses.fields(g)}), fixed.to(dev))
+    torch.cuda.synchronize()
+    assert pgo_edges.pgo_edges_kernel.launches - before == len(calls) >= 3
+    assert calls.count("cost") == got.lm_iters + 1
+    for k in ("t", "q"):
+        a, b = getattr(got[0], f"node_{k}").cpu(), getattr(want[0], f"node_{k}")
+        assert float((a - b).abs().max()) <= PGO_SOLVE_TOL[k], (k, float((a - b).abs().max()))
+    assert not torch.equal(want[0].node_t, g.node_t)
 
 
 def _entry_rgbd_frames(n=12):

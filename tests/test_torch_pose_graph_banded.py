@@ -115,3 +115,25 @@ def test_banded_refuses_unpadded_node_count(k64):
                               node_valid=tg.node_valid[:60])
     with pytest.raises(AssertionError, match="multiple of _SUPER"):
         tpg.optimize_banded(cut, _fixed(60), band_edges=band_edges)
+
+
+def test_pgo_edges_wrapper_on_cpu_is_the_plain_twin(k64):
+    """ops/kernels/pgo_edges on CPU tensors returns exactly the plain
+    twin's tensors (pose_graph.edge_terms_plain, the vmap(jacfwd)
+    linearisation and the per-edge cost) in both modes, and launches
+    nothing; the kernel's own entry refuses CPU tensors."""
+    from flvis_tpu_torch.ops.kernels import pgo_edges
+
+    _, tg, _, _ = k64
+    args = (tg.node_q, tg.node_t, tg.edge_i, tg.edge_j, tg.edge_q, tg.edge_t, tg.edge_valid,
+            tg.edge_weight, 1.0)
+    before = pgo_edges.pgo_edges_kernel.launches
+    for mode in pgo_edges.MODES:
+        got = pgo_edges.pgo_edges(*args, mode=mode)
+        want = tpg.edge_terms_plain(*args, mode=mode)
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        assert len(got) == len(want) == (6 if mode == "linearize" else 1)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert pgo_edges.pgo_edges_kernel.launches == before == 0
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        pgo_edges.pgo_edges_kernel(*args, mode="cost")

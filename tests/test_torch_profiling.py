@@ -207,16 +207,19 @@ def _loop_closer(K: int, n_closures: int):
     return lc
 
 
+@pytest.mark.parametrize("pgo_device", [None, "cpu"])
 @pytest.mark.parametrize("K,route", [(40, "dense"), (300, "banded")])
-def test_pgo_span_attributes(monkeypatch, K, route):
+def test_pgo_span_attributes(monkeypatch, K, route, pgo_device):
     """optimize_graph is one `pgo` span: its route, padded nodes, window
     and loop edges; lm_iters and lm_rejects are the LM loop's solves and
     rejected steps; its syncs are the host waits made inside it — the five
     loop-edge uploads (a closure's T_ij is a host tensor: no read a loop
     edge), the held node's flag, the assembly plans' widths, λ's upload,
     the LM's reads and, on the dense route, linalg.solve's error flag a
-    solve.  The throttle's
-    skip is a `pgo` span with route "throttled" and no wait."""
+    solve.  edge_launches, the pgo_edges kernel's launches inside the
+    solve, is 0 on the CPU, with the graph on the loop node's device or
+    moved to pgo_device="cpu".  The throttle's skip is a `pgo` span with
+    route "throttled", no launch and no wait."""
     seen = {"solves": 0, "reads": 0, "rejects": 0}
     real_loop, real_read = pose_graph._lm_outer_loop, profiling.host_read
 
@@ -250,6 +253,7 @@ def test_pgo_span_attributes(monkeypatch, K, route):
     monkeypatch.setattr(profiling, "host_read", host_read)
     L = 6
     lc = _loop_closer(K, L)
+    lc.pgo_device = None if pgo_device is None else torch.device(pgo_device)
     profiling.reset()
     lc.optimize_graph()
     lc.optimize_graph()                 # nothing new since: throttled
@@ -264,7 +268,8 @@ def test_pgo_span_attributes(monkeypatch, K, route):
     plans, checks = (1, seen["solves"]) if route == "dense" else (2, 0)
     assert solved.syncs == 5 + 1 + plans + 1 + seen["reads"] + checks
     assert seen["reads"] >= seen["solves"]
-    assert skipped.attrs == {"route": "throttled"} and skipped.syncs == 0
+    assert solved.attrs["edge_launches"] == 0
+    assert skipped.attrs == {"route": "throttled", "edge_launches": 0} and skipped.syncs == 0
 
 
 def test_ring_bound_keeps_aggregates():

@@ -6,8 +6,10 @@ MultiSeqSlam of 8 sequences that uploads from pageable memory and ends 8
 loop nodes' chunk in the next call.  Over a chunk whose end runs the loop
 node's verification and PGO, the host waits the recorder counts equal the
 synchronising operations torch reports under
-torch.cuda.set_sync_debug_mode("warn"); the captured step's stream time is
-positive and inside the chunk's host time.
+torch.cuda.set_sync_debug_mode("warn"), and each solve's `pgo` span counts
+as many pgo_edges launches as the solve made linearisations and cost
+evaluations; the captured step's stream time is positive and inside the
+chunk's host time.
 
 Needs an NVIDIA GPU; every test skips without one (marker `cuda`).  This
 file imports no JAX:
@@ -97,12 +99,36 @@ def _chunk_under_sync_debug(sut, T):
     return warned, spans, sites
 
 
-def test_host_syncs_match_sync_debug_mode(cell):
+def test_host_syncs_match_sync_debug_mode(cell, monkeypatch):
     """Over a chunk whose end verifies candidate pairs and solves PGO: the
     recorder's syncs (every span's, and by site) sum to the synchronising
-    operations torch warns of; the chunk's one fetch is one of them."""
+    operations torch warns of; the chunk's one fetch is one of them.  Each
+    solve's `pgo` span, in order, counts edge_launches = the linearisations
+    plus cost evaluations of that solve (each one pgo_edges launch)."""
+    from flvis_tpu_torch.loop import pose_graph
+
+    solves = []                         # a solve's linearisations + cost evaluations
+    real_terms = pose_graph._edge_terms
+
+    def counted_terms(graph, cauchy_c):
+        total_cost, weighted = real_terms(graph, cauchy_c)
+        solves.append(0)
+        k = len(solves) - 1
+
+        def cost(nodes):
+            solves[k] += 1
+            return total_cost(nodes)
+
+        def lin(nodes):
+            solves[k] += 1
+            return weighted(nodes)
+
+        return cost, lin
+
+    monkeypatch.setattr(pose_graph, "_edge_terms", counted_terms)
     sut, T = cell
     for _ in range(6):
+        solves.clear()
         warned, spans, sites = _chunk_under_sync_debug(sut, T)
         names = collections.Counter(s.name for s in spans)
         pgo = [s for s in spans if s.name == "pgo" and s.attrs["route"] != "throttled"]
@@ -114,7 +140,9 @@ def test_host_syncs_match_sync_debug_mode(cell):
     counted = sum(s.syncs for s in spans)
     print(f"\nsync debug mode: {sum(warned.values())} warnings by site {dict(warned)}")
     print(f"recorder: {counted} syncs by site {sites}; spans {dict(names)}; "
-          f"pgo {[s.attrs for s in pgo]}; pairs {pairs}")
+          f"pgo {[s.attrs for s in pgo]}; pairs {pairs}; edge terms a solve {solves}")
+    assert [s.attrs["edge_launches"] for s in sorted(pgo, key=lambda s: s.t0)] == solves
+    assert min(solves) >= 3
     assert counted == sum(sites.values())
     assert sites["runner.fetch"] == 1
     assert counted == sum(warned.values()), (dict(warned), sites)
