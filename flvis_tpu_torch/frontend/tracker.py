@@ -23,6 +23,18 @@ Choices made where the JAX formulation cannot carry over as is:
     (torch.full, not torch.tensor, which would copy from the host).
   - Medians.  jnp.nanmedian averages the two middle values, torch.nanmedian
     returns the lower one: torch.nanquantile(x, 0.5) is used instead.
+  - The stereo LK's start on a (re-)initialising frame.  The reference
+    starts every landmark without a depth at the disparity of the tracked
+    landmarks' median depth, or of 4 m when none has one (tracker.py:171).
+    At a wide baseline that start lies past the LK's reach (KITTI: fx·b /
+    4 m = 96.5 px against 10 · 2² = 40 px), so the port chooses a route
+    from the camera's host fx·b and the LK's reach (`depth_prior_route`, a
+    static choice: a captured step holds one route): "fixed" keeps the
+    reference's start; "image" starts the init frame's landmarks from
+    the half-resolution plane sweep of the stereo pair (ops/stereo.py),
+    sampled at each keypoint, the sweep's median where a keypoint has no
+    valid value, and 4 m where none has.  Tracking frames keep the median
+    start on either route.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from ..ops import image as imops
 from ..ops import lk as lk_ops
 from ..ops import pnp as pnp_ops
 from ..ops import ransac as ransac_ops
+from ..ops import stereo as stereo_ops
 from ..utils import control
 from ..utils.tree import tree_map, tree_where
 from . import landmark_table as lt
@@ -156,11 +169,44 @@ def _nanmedian(x, dim=None):
     return torch.nanquantile(x, 0.5) if dim is None else torch.nanquantile(x, 0.5, dim=dim)
 
 
+Z_FALLBACK = 4.0                        # metres: the start when nothing else gives one
+
+
+def stereo_reach_px(cfg: FrontendConfig) -> float:
+    """How far, in full-resolution pixels, the stereo LK converges from its
+    start: its radius at the coarsest of its (at most 3) levels."""
+    return float(cfg.lk_radius * 2 ** (min(3, cfg.pyramid_levels) - 1))
+
+
+def depth_prior_route(cfg: FrontendConfig, cam: StereoCamera) -> str:
+    """The stereo LK start of a (re-)initialising frame (module note):
+    "image" where the 4 m fallback's disparity, the camera's host fx·b
+    (`cam.fx_b`) over 4 m, lies past the stereo LK's reach, else "fixed".
+    Depth mode takes "fixed" (it runs no stereo LK)."""
+    if cfg.depth_mode or cam.fx_b / Z_FALLBACK <= stereo_reach_px(cfg):
+        return "fixed"
+    return "image"
+
+
+def _image_disparity(cam: StereoCamera, pyr0, pyr1, uv, active, fallback):
+    """The init frame's stereo LK start, (N,) px: the half-resolution sweep
+    of the level-0 pair sampled at uv; where it has no valid value, the
+    valid values' median; where none is valid, `fallback`."""
+    disp_map, valid = stereo_ops.disparity_sweep(pyr0[0][0], pyr1[0][0])
+    d, ok = stereo_ops.keypoint_disparity(disp_map, valid, uv)
+    ok = ok & active
+    d_med = torch.nan_to_num(_nanmedian(torch.where(ok, d, torch.nan)), nan=0.0)
+    d_rest = torch.where(torch.any(ok), d_med, fallback)
+    return torch.where(ok, d, d_rest)
+
+
 def _measure_depth(cfg: FrontendConfig, cam: StereoCamera, pyr0, pyr1, d_img,
-                   table: lt.LandmarkTable, T_c_w: SE3):
+                   table: lt.LandmarkTable, T_c_w: SE3, prior: str = "fixed"):
     """Depth for all active slots: stereo LK + rectified disparity (or the
     depth image in depth mode), with motion triangulation from the first
-    observation as the fallback.  Returns (z, ok, stereo_ok)."""
+    observation as the fallback.  `prior` ("fixed" or "image"): the stereo
+    LK start of the slots without a depth (module note).  Returns (z, ok,
+    stereo_ok)."""
     if cfg.depth_mode:
         z = imops.bilinear_sample(d_img, table.uv) / cam.depth_factor
         ok = table.active & (z > cfg.depth_min) & (z < cfg.depth_max)
@@ -168,9 +214,13 @@ def _measure_depth(cfg: FrontendConfig, cam: StereoCamera, pyr0, pyr1, d_img,
 
     p_c = se3m.transform_points(T_c_w, table.p_w)
     z3d = torch.where(table.has_3d & table.active, p_c[:, 2], torch.nan)
-    z_med = torch.nan_to_num(_nanmedian(z3d), nan=4.0)
+    z_med = torch.nan_to_num(_nanmedian(z3d), nan=Z_FALLBACK)
     z_prior = torch.where(table.has_3d, p_c[:, 2], z_med)
     disp_guess = cam.fx * cam.baseline / torch.clamp(z_prior, cfg.depth_min, cfg.depth_max)
+    if prior == "image":
+        free = _image_disparity(cam, pyr0, pyr1, table.uv, table.active & ~table.has_3d,
+                                cam.fx * cam.baseline / Z_FALLBACK)
+        disp_guess = torch.where(table.has_3d, disp_guess, free)
     nlv = min(3, cfg.pyramid_levels)
     stereo_params = dataclasses.replace(_lk_params(cfg), num_levels=nlv)
     disp, ok = lk_ops.stereo_lk(pyr0[:nlv], pyr1[:nlv], table.uv, disp_guess,
@@ -249,11 +299,13 @@ def _redetect(cfg: FrontendConfig, img0, table: lt.LandmarkTable, T_c_w: SE3, ne
 
 def _init_branch(cfg, cam, state: TrackerState, pyr0, pyr1, d_img, T_init: SE3,
                  draws: Draws):
-    """UnInit / TrackingFail recovery: wipe, detect, bootstrap depth."""
+    """UnInit / TrackingFail recovery: wipe, detect, bootstrap depth (the
+    stereo LK started on the camera's route; module note)."""
     dev = state.status.device
     table = lt.empty(cfg.num_slots, device=dev, dtype=state.table.uv.dtype)
     table, next_id = _redetect(cfg, pyr0[0][0], table, T_init, state.next_lm_id)
-    z, ok, st_ok = _measure_depth(cfg, cam, pyr0, pyr1, d_img, table, T_init)
+    z, ok, st_ok = _measure_depth(cfg, cam, pyr0, pyr1, d_img, table, T_init,
+                                  depth_prior_route(cfg, cam))
     table = _depth_innovation(cfg, cam, table, T_init, z, ok, st_ok, draws.depth,
                               bootstrap=True)
     was_fail = state.status == STATUS_FAIL

@@ -3,7 +3,10 @@
 The device-side model is an ideal rectified pinhole pair: the right camera
 shares cam0's intrinsics and sits at `baseline` along +x, so
 u_right = u_left − fx·b/z.  Intrinsics are 0-d tensors on the caller's
-device; width/height are plain ints (shape-determining).
+device; width/height are plain ints (shape-determining), and fx_b is a
+host copy of fx·baseline (px·m; static: the tracker picks its stereo LK
+start on initialising frames from it, frontend/tracker.depth_prior_route;
+0 where the camera was not made by `make`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ class StereoCamera:
     depth_factor: torch.Tensor  # raw depth units → metres divisor
     width: int = 640
     height: int = 480
+    fx_b: float = 0.0
 
 
 def make(fx, fy, cx, cy, baseline=0.0, depth_factor=1000.0, width=640, height=480,
@@ -34,7 +38,7 @@ def make(fx, fy, cx, cy, baseline=0.0, depth_factor=1000.0, width=640, height=48
         return torch.as_tensor(v, dtype=dtype, device=device)
 
     return StereoCamera(f(fx), f(fy), f(cx), f(cy), f(baseline), f(depth_factor),
-                        int(width), int(height))
+                        int(width), int(height), float(fx) * float(baseline))
 
 
 def _safe_z(z):

@@ -180,9 +180,11 @@ class MultiSeqSlam:
             n = len(self.seqs)
             u = torch.zeros((n, tracker.draws_size(self.cfg.frontend)),
                             dtype=torch.float32, device=self.device)
+            routes = sorted({tracker.depth_prior_route(self.cfg.frontend, c) for c in self.cams})
             cap = self._captured[kind] = runner_m._Captured(
                 self._step(kind, self._tickets), self._carries(kind == "vio"), xs, u,
-                f"the {n}-sequence {kind} frame step", branches=n)
+                f"the {n}-sequence {kind} frame step", branches=n,
+                attrs={"kind": "vio" if kind == "vio" else "vo", "route": "+".join(routes)})
         return cap
 
     def _run_chunk_eager(self, kind: str, seq_xs):

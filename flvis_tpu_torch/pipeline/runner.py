@@ -40,8 +40,9 @@ Three entry points, with the reference's semantics:
     where(ff.ok, IMU pose, constant velocity) with use_prior, the blend when
     ff.ok and TRACKING, and the bias feedback BEFORE the backend tail.
 The two chunk entries end the chunk as the reference's _finish_chunk does
-(runner.py:469-556): the chunk's outputs are packed into one (T, 14) array
-and fetched to the host once, together with the captured step's taken
+(runner.py:469-556): the chunk's outputs are packed into one (T, 16) array
+(the reference's 14 columns, then the frames' depth counts) and fetched
+to the host once, together with the captured step's taken
 counts and the loop node's pending gate rows and verification
 statistics; then the chunk's keyframes go into the loop node as one batch
 (add_keyframes_batch) and their candidate gate is
@@ -281,19 +282,32 @@ def _fused_vio_frame_step(fcfg, bcfg, vcfg, cam: StereoCamera, T_i_c: SE3, null,
     return (fe, ba, vio, corr_new), (out, pkt, corr_new, cost)
 
 
-def _frame_row(ys, sparse_map: bool = False):
+def _frame_row(ys, sparse_map: bool = False, fe=None):
     """A frame's outputs (FrameOutput, KeyframePacket, Correction, cost) as
     (its packed (14,) row, its KeyframePacket); with sparse_map the packet
-    comes as (KeyframePacket, (Correction.lm_id, lm_pw, lm_mask))."""
+    comes as (KeyframePacket, (Correction.lm_id, lm_pw, lm_mask)).  Given
+    the tracker state the frame left, `fe`, the row takes two columns more
+    (16,): its active slots and those whose stereo depth was accepted
+    (`ur_ok`: the stereo LK's disparity in range)."""
     out, pkt, corr, cost = ys
     row = _pack_outputs(tree_map(lambda a: a[None], out), cost[None], corr.valid[None])[0]
+    if fe is not None:
+        row = torch.cat([row, depth_counts(fe)])
     return row, ((pkt, (corr.lm_id, corr.lm_pw, corr.lm_mask)) if sparse_map else pkt)
+
+
+def depth_counts(fe):
+    """(2,) float32: the tracker state's active slots and stereo-accepted
+    slots."""
+    t = fe.table
+    return torch.stack([t.active.sum(), t.ur_ok.sum()]).to(torch.float32)
 
 
 def run_chunk_eager(step, carry, xs, draws, sparse_map: bool = False):
     """step(carry, xs_i, draws_i) over a chunk, eagerly: xs a tuple of
-    (T, ...) tensors, draws a callable i → Draws.  Returns (carry, packed
-    (T, 14) outputs, KeyframePacket stacked over T — with sparse_map, with
+    (T, ...) tensors, draws a callable i → Draws; carry[0] the tracker
+    state.  Returns (carry, packed (T, 16) outputs — _frame_row's with the
+    depth counts —, KeyframePacket stacked over T — with sparse_map, with
     the corrections' landmarks as _frame_row gives them)."""
     rows, pkts = [], []
     T = xs[0].shape[0]
@@ -301,7 +315,7 @@ def run_chunk_eager(step, carry, xs, draws, sparse_map: bool = False):
         for i in range(T):
             with profiling.span("step.eager"):
                 carry, ys = step(carry, tuple(x[i] for x in xs), draws(i))
-            row, pkt = _frame_row(ys, sparse_map)
+            row, pkt = _frame_row(ys, sparse_map, carry[0])
             rows.append(row)
             pkts.append(pkt)
         return carry, torch.stack(rows), tree_map(lambda *a: torch.stack(a), *pkts)
@@ -334,10 +348,10 @@ class _Captured:
     called once a host read has waited for the chunk, adds their elapsed
     time to the chunk's step.run span as `stream_ns`."""
 
-    def __init__(self, fn, carry, xs, u, name, branches: int = 0):
+    def __init__(self, fn, carry, xs, u, name, branches: int = 0, attrs: dict | None = None):
         self.xs, self.u = tuple(x.clone() for x in xs), u
         self.step = control.CapturedStep(fn, tree_map(torch.clone, carry), self.xs + (self.u,),
-                                         name=name, branches=branches)
+                                         name=name, branches=branches, attrs=attrs)
         self._events = ([], [])         # two sets of timing events, used in turns
         self._turn = 0
         self._unread = []               # (events, replays, step.run span) not yet read
@@ -457,6 +471,8 @@ class SlamSystem:
         self.pipelined = pipelined
         self._inflight = None           # the chunk whose end is still to run
         self._captured = {}             # ("stereo" | "vio", input dtypes) -> _Captured (CUDA)
+        # The tracker's stereo LK start on initialising frames, from the camera.
+        self.depth_prior = tracker.depth_prior_route(cfg.frontend, cam)
         # The schur kernel's last-block ticket of this system's captured steps.
         self._ticket = (torch.zeros(1, dtype=torch.int32, device=self.device)
                         if self.device.type == "cuda" else None)
@@ -556,8 +572,9 @@ class SlamSystem:
         """Step the chunk's frames (xs: (T, ...) tensors on the device) from
         the system's state: on a CUDA device one replay of the captured step
         a frame (captured at the first chunk), else the eager step.  Updates
-        the state; returns the packed (T, 14) outputs and the stacked
-        KeyframePackets (on the device) and the captured step, or None."""
+        the state; returns the packed (T, 16) outputs (_frame_row with the
+        depth counts) and the stacked KeyframePackets (on the device) and
+        the captured step, or None."""
         if self.device.type != "cuda":
             return self._run_chunk_eager(kind, xs)
         vio = kind == "vio"
@@ -587,11 +604,12 @@ class SlamSystem:
                 *frame, u = inputs
                 with schur.use_ticket(self._ticket):
                     c, ys = step(c, tuple(frame), tracker.draws_of(fcfg, u))
-                return c, _frame_row(ys, sparse_map)
+                return c, _frame_row(ys, sparse_map, c[0])
 
             u = torch.zeros(tracker.draws_size(fcfg), dtype=torch.float32, device=self.device)
             cap = self._captured[key] = _Captured(
-                fn, self._carry(vio), tuple(x[0] for x in xs), u, f"the {kind} frame step")
+                fn, self._carry(vio), tuple(x[0] for x in xs), u, f"the {kind} frame step",
+                attrs={"kind": "vio" if vio else "vo", "route": self.depth_prior})
         return cap
 
     def _run_chunk_eager(self, kind: str, xs):
@@ -658,7 +676,9 @@ class SlamSystem:
     def _finish_chunk(self, packed_dev, pkts, cap, imgs0, imgs1, ts, T, cid=None):
         """A chunk's end (the reference's _finish_chunk): ONE host fetch of
         the packed outputs with the captured step's taken counts and the
-        loop stage's pending gate rows and verification statistics; resolve
+        loop stage's pending gate rows and verification statistics (the
+        chunk.fetch span gets the chunk's sums of the depth counts, `active`
+        and `stereo_ok`); resolve
         the loop stage; log the chunk; ingest its keyframes into the loop
         node and gate them; with the sparse map, the chunk's correction
         landmarks come in the same fetch (the ids' int32 bits as float32).
@@ -680,6 +700,7 @@ class SlamSystem:
             if cap is not None:
                 sp.set(**cap.step.settle(taken))
                 cap.settle_stream()
+            sp.set(active=int(packed[:, 14].sum()), stereo_ok=int(packed[:, 15].sum()))
         if stage is not None:
             stage.resolve(rows, stats)
         with profiling.span("chunk.log"):

@@ -399,12 +399,14 @@ class CapturedStep:
     graph.  `carry` and `xs` are trees of CUDA tensors: the caller refills
     `xs` before each replay(); each replay moves the step's carry' into
     `carry` and rewrites `ys`.  `branches`: the most `control.branches`
-    items the step runs."""
+    items the step runs; `attrs`: further attributes of the `capture` span
+    (what kind of step, its routes)."""
 
     STREAMS = 4             # the capture's stream and one per nesting depth, per branch
     WARMUP = 2              # eager steps, both branches of every cond, before the capture
 
-    def __init__(self, fn, carry, xs, *, name: str = "step", branches: int = 0):
+    def __init__(self, fn, carry, xs, *, name: str = "step", branches: int = 0,
+                 attrs: dict | None = None):
         leaves = tree_leaves((carry, xs))
         if not leaves or not all(t.is_cuda for t in leaves):
             raise ValueError(f"CapturedStep({name}): the step's inputs must be CUDA tensors")
@@ -417,7 +419,7 @@ class CapturedStep:
         self.taken = torch.zeros((MAX_SITES * (1 + branches), 2), dtype=torch.int32,
                                  device=self.device)
         lib, _ = _build.load_library()
-        with profiling.span("capture", step=name) as sp:
+        with profiling.span("capture", step=name, **(attrs or {})) as sp:
             self._capture(lib, fn, carry, xs, name, branches)
             sp.set(warmup_s=self.seconds["warmup"], capture_s=self.seconds["capture"])
         self.replays = self.settled = 0

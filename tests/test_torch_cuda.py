@@ -1305,6 +1305,160 @@ def test_two_systems_capture_side_by_side(dev):
         _assert_same_outputs(got, want)
 
 
+# KITTI odometry stereo (sequence 00's calib.txt P0/P1) at its full 1241 x 376:
+# the VO step with the tracker's image depth prior (fx·b / 4 m = 96.5 px,
+# past the stereo LK's 40 px reach).
+KITTI_CAM = (718.856, 718.856, 607.1928, 185.2157, 386.1448 / 718.856)
+
+
+def _kitti_system(dev):
+    """slambench/configs/kitti_stereo.json's frontend and window, and its
+    camera on dev."""
+    from flvis_tpu_torch.config import BackendConfig, FrontendConfig, SystemConfig
+    from flvis_tpu_torch.geometry import camera
+
+    cfg = SystemConfig(
+        vi_type=4,
+        frontend=FrontendConfig(width=1241, height=376, num_slots=256, pyramid_levels=3,
+                                lk_radius=10, lk_iters=6, margin=20, depth_max=80.0),
+        backend=BackendConfig(window_size=10))
+    return cfg, camera.make(*KITTI_CAM, width=1241, height=376, device=dev)
+
+
+def _kitti_frames(n=10, blank=(4, 5), seed=19):
+    """n frames driven sideways at 0.127 m a frame along a textured plane
+    12 m ahead (uint8; blank at `blank`: escaped, FAIL, then re-init)."""
+    from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig
+
+    fx, fy, cx, cy, b = KITTI_CAM
+    scene = PlanarScene(SceneConfig(width=1241, height=376, fx=fx, fy=fy, cx=cx, cy=cy,
+                                    baseline=b), plane_depth=12.0, seed=seed)
+    frames = [scene.render(np.eye(3), -np.asarray([0.127 * i, 0.0, 0.0]))[:2]
+              for i in range(n)]
+    u8 = [np.stack([np.clip(np.round(f[k]), 0, 255).astype(np.uint8) for f in frames])
+          for k in (0, 1)]
+    for a in u8:
+        a[list(blank)] = 0
+    return u8[0], u8[1], np.arange(n) / 10.0, ([], [], [])
+
+
+def test_kitti_captured_vo_step_matches_eager(dev):
+    """process_frames at KITTI's geometry on the card, the image route's
+    sweep inside the status cond's init body: the captured step (re-init
+    after two blank frames taken inside the graph) against the eager
+    composition on the same draws, bit for bit; the capture span names the
+    step and its route."""
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+    from flvis_tpu_torch.utils import profiling
+
+    cfg, cam = _kitti_system(dev)
+    frames = _kitti_frames()
+    slam = SlamSystem(cfg, cam, device=dev, seed=0)
+    assert slam.depth_prior == "image"
+    got = _chunks(slam, "stereo", frames, 5)
+    want, costs = _eager_chunks(SlamSystem(cfg, cam, device=dev, seed=0), "stereo", frames, 5)
+    _assert_same_outputs(got, want)
+    assert slam.ba_costs == costs
+    status = np.concatenate([o.status for o in got])
+    assert status[5] == 2 and status[6] == 1 and (status[[0, 1, 2, 3, 7, 8, 9]] == 1).all()
+    cap = max((s for s in profiling.spans() if s.name == "capture"), key=lambda s: s.t0)
+    assert cap.attrs["kind"] == "vo" and cap.attrs["route"] == "image"
+
+
+def test_kitti_init_depths_hold_to_the_plain_reference(dev):
+    """The init frame's stereo depths at 1241 x 376 on the card (the sweep
+    kernel, then the stereo LK) against exhaustive block matching
+    (tests/plain_stereo_depth.py, on the card) and the truth, with the CPU
+    test's tolerances (tests/test_torch_kitti_stereo.py); the fixed 4 m
+    start fails them."""
+    from plain_stereo_depth import keypoint_depth
+    from test_torch_kitti_stereo import BOTH_SHARE, DEPTH_SHARE, DEPTH_TOL, DISP_TOL_PX
+
+    from flvis_tpu_torch.frontend import landmark_table as lt, tracker
+    from flvis_tpu_torch.geometry import se3
+    from flvis_tpu_torch.ops import image as imops
+
+    cfg, cam = _kitti_system(dev)
+    fe = cfg.frontend
+    imgs0, imgs1, _, _ = _kitti_frames(n=1, blank=())
+    L = torch.as_tensor(imgs0[0], device=dev).float()
+    R = torch.as_tensor(imgs1[0], device=dev).float()
+    pyrs = imops.build_grad_pyramid(torch.stack([L, L, R]), fe.pyramid_levels)
+    pyr0 = tuple((im[1], gx[1], gy[1]) for im, gx, gy in pyrs)
+    pyr1 = tuple((im[2], gx[2], gy[2]) for im, gx, gy in pyrs)
+    T = se3.identity(device=dev)
+    table = lt.empty(fe.num_slots, device=dev, dtype=torch.float32)
+    table, _ = tracker._redetect(fe, L, table, T, torch.tensor(100, dtype=torch.int32,
+                                                                device=dev))
+    d_ref, z_ref, v_ref = keypoint_depth(L, R, table.uv, cam.fx_b)
+    active = table.active
+    n = int(active.sum())
+    for route in ("image", "fixed"):
+        z, _, ok = tracker._measure_depth(fe, cam, pyr0, pyr1, None, table, T, route)
+        both = ok & v_ref & active
+        held = both & ((cam.fx_b / z - d_ref).abs() <= DISP_TOL_PX)
+        good = ok & active & ((z - 12.0).abs() <= DEPTH_TOL * 12.0)
+        err = (cam.fx_b / z - d_ref)[both].abs()
+        print(f"\n{route}: {n} active, {int(both.sum())} valid in both, "
+              f"{int(held.sum())} within {DISP_TOL_PX} px (max {float(err.max()) if len(err) else None}), "
+              f"{int(good.sum())} within {DEPTH_TOL:.0%} of 12 m")
+        if route == "image":
+            assert int(both.sum()) >= BOTH_SHARE * n and int(held.sum()) == int(both.sum())
+            assert int(good.sum()) >= DEPTH_SHARE * n
+        else:
+            assert int(held.sum()) < BOTH_SHARE * n and int(good.sum()) < DEPTH_SHARE * n
+    assert float(((z_ref - 12.0).abs() / 12.0)[v_ref & active].max()) <= DEPTH_TOL
+
+
+def test_kitti_chunk_waits_no_more_than_eager_init(dev):
+    """A kitti.replay-shaped chunk whose frames re-initialise after two
+    blank ones (the graph's init body runs the sweep), after a first chunk
+    that captured the step, under set_sync_debug_mode("warn"): the captured
+    replays warn of no host wait, where the eager composition's frames wait
+    (its conds read the host)."""
+    import traceback
+    import warnings
+
+    from flvis_tpu_torch.pipeline.runner import SlamSystem
+
+    cfg, cam = _kitti_system(dev)
+    imgs0, imgs1, ts, imu = _kitti_frames(n=10, blank=(6, 7))
+
+    def waits(slam):
+        _chunks(slam, "stereo", (imgs0[:5], imgs1[:5], ts[:5], imu), 5)
+        xs = (torch.as_tensor(imgs0[5:], device=dev), torch.as_tensor(imgs1[5:], device=dev))
+        torch.cuda.synchronize()
+        where = []
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            # The port's innermost frame names the site; the mode switches warn
+            # by themselves, outside the program.
+            if "synchroniz" in str(message):
+                own = [f for f in traceback.extract_stack() if "flvis_tpu_torch" in f.filename]
+                if own:
+                    where.append(f"{own[-1].filename}:{own[-1].lineno}")
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                packed, _, _ = slam._run_chunk("stereo", xs)
+                n = len(where)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert torch.isfinite(packed).all()
+        return n, where, packed
+
+    captured, where, packed = waits(SlamSystem(cfg, cam, device=dev, seed=0))
+    eager = SlamSystem(cfg, cam, device=dev, seed=0)
+    eager._run_chunk = eager._run_chunk_eager
+    eager_waits, _, want = waits(eager)
+    print(f"\nhost waits: captured {captured}, eager {eager_waits}")
+    assert captured == 0 < eager_waits, where[:2]
+    assert (packed[:, 2] == want[:, 2]).all() and packed[2, 2] == 2 and packed[3, 2] == 1
+
+
 def test_capture_failure_raises(dev, monkeypatch):
     """A host read inside the step makes its capture fail: process_frames
     raises in the capture's warm-up, before any capture begins, naming the

@@ -19,8 +19,8 @@ from flvis_tpu_torch.geometry.se3 import SE3
 from flvis_tpu_torch.io.synthetic import PlanarScene, SceneConfig, imu_from_trajectory
 from flvis_tpu_torch.loop import loop_closing, pose_graph
 from flvis_tpu_torch.parallel.multiseq_loop import MultiSeqSlam
-from flvis_tpu_torch.pipeline.runner import SlamSystem
-from flvis_tpu_torch.utils import profiling
+from flvis_tpu_torch.pipeline.runner import SlamSystem, depth_counts
+from flvis_tpu_torch.utils import control, profiling
 
 torch.set_num_threads(1)
 
@@ -141,6 +141,60 @@ def test_chunked_vio_run_spans(vio_spans):
     assert sum(s.attrs.get("accepted", 0) for s in spans if s.name == "loop.accept") == \
         len(slam.loop_closer.closures) >= 1
     assert all(ids[e.parent].name == "chunk" for e in ends)
+
+
+def test_depth_counts_on_the_fetch(scene):
+    """Each chunk.fetch of process_frames carries `active` and `stereo_ok`:
+    the sums over the chunk's frames of the slots active, and stereo
+    accepted, in the tracker state each frame step left — recomputed here
+    from those states."""
+    frames = scene[0]
+    profiling.reset()
+    slam = SlamSystem(_cfg(), _cam(), device="cpu")
+    per_frame = []
+    real = slam._stereo_step
+
+    def step(carry, x, draws):
+        carry, ys = real(carry, x, draws)
+        per_frame.append(depth_counts(carry[0]).tolist())
+        return carry, ys
+
+    slam._stereo_step = step
+    for c0 in range(0, N, CHUNK):
+        slam.process_frames(np.stack([f[0] for f in frames[c0:c0 + CHUNK]]),
+                            np.stack([f[1] for f in frames[c0:c0 + CHUNK]]))
+    fetches = sorted((s for s in profiling.spans() if s.name == "chunk.fetch"),
+                     key=lambda s: s.t0)
+    sums = np.asarray(per_frame).reshape(N // CHUNK, CHUNK, 2).sum(1)
+    assert [(f.attrs["active"], f.attrs["stereo_ok"]) for f in fetches] == \
+        [(int(a), int(b)) for a, b in sums]
+    assert all(f.syncs == 1 for f in fetches)
+    assert 0 < sums[:, 1].sum() <= sums[:, 0].sum()
+
+
+def test_capture_span_attributes(monkeypatch):
+    """The `capture` span names the step's kind (vo, vio) and the tracker's
+    depth-prior route (fixed, image): the attributes SlamSystem and
+    MultiSeqSlam hand their CapturedStep, which opens the span with them
+    (on the card; tests/test_torch_profiling_cuda.py reads the span)."""
+    seen = []
+
+    class Recorder:
+        def __init__(self, fn, carry, xs, *, name, branches=0, attrs=None):
+            seen.append(attrs)
+
+    monkeypatch.setattr(control, "CapturedStep", Recorder)
+    wide = tcam.make(718.856, 718.856, SCFG.cx, SCFG.cy, 386.1448 / 718.856,
+                     width=SCFG.width, height=SCFG.height, device="cpu")
+    img = torch.zeros((2, SCFG.height, SCFG.width), dtype=torch.uint8)
+    for cam, route in ((_cam(), "fixed"), (wide, "image")):
+        slam = SlamSystem(_cfg(), cam, device="cpu", use_imu=True)
+        slam._captured_step("stereo", (img, img))
+        slam._captured_step("vio", (img, img) + tuple(torch.zeros((2, 16)) for _ in range(5)))
+        ms = MultiSeqSlam(_cfg(), cam, num_seqs=2, device="cpu")
+        ms._captured_step("stereo", (img[None].expand(2, -1, -1, -1),) * 2)
+        assert seen[-3:] == [{"kind": "vo", "route": route}, {"kind": "vio", "route": route},
+                             {"kind": "vo", "route": route}]
 
 
 def test_pipelined_multiseq_spans(scene):

@@ -1,9 +1,10 @@
 """The recorder (flvis_tpu_torch.utils.profiling) on the card, over a chunk
 of each of the benchmark's cells (built by slambench/driver.py and warmed
 up as the benchmark warms them): euroc.replay, a SlamSystem that uploads
-its chunk through pinned memory, and euroc.fleet8, a pipelined
+its chunk through pinned memory, euroc.fleet8, a pipelined
 MultiSeqSlam of 8 sequences that uploads from pageable memory and ends 8
-loop nodes' chunk in the next call.  Over a chunk whose end runs the loop
+loop nodes' chunk in the next call, and kitti.replay, the stereo-only
+SlamSystem at 1241 x 376 with a keyframe a frame.  Over a chunk whose end runs the loop
 node's verification and PGO, the host waits the recorder counts equal the
 synchronising operations torch reports under
 torch.cuda.set_sync_debug_mode("warn"), and each solve's `pgo` span counts
@@ -38,7 +39,7 @@ def _need_a_card():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
 
 
-@pytest.fixture(scope="module", params=["euroc.replay", "euroc.fleet8"])
+@pytest.fixture(scope="module", params=["euroc.replay", "euroc.fleet8", "kitti.replay"])
 def cell(request):
     """The cell's system, warmed up as the benchmark warms it."""
     _need_a_card()
